@@ -1,0 +1,32 @@
+"""duckdb_parquet_parser_tpu_torch — the Parquet regex page-pruning scan in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of `duckdb_parquet_parser_tpu` (the JAX reference, which stays in the
+repository unchanged).  Module names mirror the reference so every port
+module has an obvious counterpart.  The package imports `torch` and never
+`jax`; it reuses only the reference's JAX-free host layer (native prescan
+bindings, writer, schema, the regex and register-machine compilers, config).
+
+Public entry points: `models.scan.ScanEngine` and `ResidentColumn`.  Every
+entry point takes an explicit `device`; CUDA tensors go through the kernels
+in `ops/kernels/` and CPU tensors through their plain PyTorch versions.
+"""
+
+__all__ = ["ScanEngine", "ResidentColumn", "ParquetReader"]
+
+_LAZY = {
+    "ScanEngine": ("duckdb_parquet_parser_tpu_torch.models.scan", "ScanEngine"),
+    "ResidentColumn": ("duckdb_parquet_parser_tpu_torch.models.scan",
+                       "ResidentColumn"),
+    "ParquetReader": ("duckdb_parquet_parser_tpu_torch.host.reader",
+                      "ParquetReader"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

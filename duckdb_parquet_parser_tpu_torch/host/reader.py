@@ -3,22 +3,21 @@
 JAX-free counterpart of the parts of `duckdb_parquet_parser_tpu.host.
 reader.ParquetReader` the scan needs (`__init__`, `open`, `find_column`,
 `column`, `prescan`): the reference module imports its JAX decode at
-import time, so the port cannot import it.  Everything here is the shared
-native layer (`host.bindings`: open, metadata, structural prescan).
+import time.  Everything here goes through the port's own native layer
+(`host/bindings.py`: open, metadata, structural prescan).
 """
 
 from __future__ import annotations
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.schema import (
+from ..utils.config import get_config
+from . import bindings
+from .batch import DecodeBatch
+from .schema import (
     ColumnInfo,
     ConvertedType,
     FieldRepetitionType,
     ParquetType,
 )
-from duckdb_parquet_parser_tpu.utils.config import get_config
-
-from .batch import DecodeBatch
 
 
 class ParquetReader:

@@ -3,11 +3,12 @@ pruning over a BYTE_ARRAY column.
 
 Port of `duckdb_parquet_parser_tpu.models.scan` (`ScanEngine.__init__ /
 resident / scan / cold_scan`, `ResidentColumn`).  The flow: prescan the
-column on the host, upload the raw page payloads once (pre-transposed
-[steps, n] byte streams, in length buckets — or, for big pages, as
-value-boundary segments), then per query walk the PLAIN bytes through the
-stream matcher (kernel K1), map dictionary pages through the dictionary
-lookup (kernel K2), and count matches per page.  Pages with zero matches
+column on the host, upload the raw page payloads once (byte streams in
+the stream matcher's chunked layout, in length buckets — or, for big
+pages, as value-boundary segments), then per query walk the PLAIN bytes
+through the stream matcher (kernel K1), count the accepted values of
+dictionary pages in the dictionary kernel (K2), and report matches per
+page.  Pages with zero matches
 are pruned.  `cold_scan` is the native host scan, with no device.
 
 Every device entry point takes an explicit `device`.  On CUDA the kernels
@@ -21,19 +22,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.ops.regex import (
-    anchored_prune_range,
-    like_to_regex,
-    substring_chain,
-)
-
+from ..host import bindings
 from ..host.batch import to_tensor
 from ..host.reader import ParquetReader
+from ..host.schema import ParquetType
 from ..ops import decode as _decode
 from ..ops import scan as _scan
 from ..ops import strings as _strings
+from ..ops.regex import anchored_prune_range, like_to_regex, substring_chain
 from ..ops.scan import PageMatchResult
 
 
@@ -109,7 +105,10 @@ class ResidentColumn:
     Pages live in LENGTH BUCKETS (ops/scan.length_buckets): each bucket's
     walk stops at its own longest page.  Big pages (over SPLIT_TRIGGER
     bytes) are instead kept as value-boundary segments whose hits sum back
-    to pages; that layout runs one walk per pattern in `scan_many`."""
+    to pages; that layout runs one walk per pattern in `scan_many`.  Each
+    bucket records which page kinds it holds, so a query launches the walk
+    only over PLAIN pages and the dictionary kernel only over dictionary
+    pages."""
 
     def __init__(self, reader: ParquetReader, column: str, *, device):
         _check_byte_array(reader, column)
@@ -121,27 +120,42 @@ class ResidentColumn:
         is_dict = np.asarray(arrays["page_kind"]) == 1
         dev = self.device
 
-        self._split = None
+        nn = np.asarray(arrays["page_nn"])
         self._buckets = []
         sp = _scan.split_payload_pages(arrays)
         if sp is not None:
             sub_payload, sub_len, sub_nn, seg_page = sp
             steps = min(_scan.scan_steps(sub_len), sub_payload.shape[1])
-            self._split = dict(
-                payload_t=_scan.transposed_stream(sub_payload, steps, dev),
-                plen=to_tensor(sub_len, dev, dtype=np.int32),
-                sub_nn=to_tensor(sub_nn, dev, dtype=np.int32),
-                seg=to_tensor(seg_page, dev, dtype=np.int32), steps=steps,
-                core=self._batch.to_device(dev, _decode.DECODE_ARRAYS))
+            plain_lane = ~is_dict[seg_page]
+            self._buckets.append(dict(
+                idx=slice(None), steps=steps,
+                core=self._batch.to_device(dev, _decode.DECODE_ARRAYS),
+                stream=_scan.resident_stream(sub_payload, steps, dev),
+                walk_plen=to_tensor(np.where(plain_lane, sub_len, 0), dev,
+                                    dtype=np.int32),
+                walk_nn=to_tensor(np.where(plain_lane, sub_nn, 0), dev,
+                                  dtype=np.int32),
+                seg=to_tensor(seg_page, dev, dtype=np.int64),
+                has_plain=bool(plain_lane.any()),
+                has_dict=bool(is_dict.any())))
         else:
-            for idx, steps in _scan.length_buckets(np.where(is_dict, 0, plen)):
+            walk_plen = np.where(is_dict, 0, plen)
+            walk_nn = np.where(is_dict, 0, nn)
+            for idx, steps in _scan.length_buckets(walk_plen):
                 self._buckets.append(dict(
                     idx=idx, steps=steps,
                     core=self._batch.to_device(dev, _decode.DECODE_ARRAYS,
                                                rows=idx),
-                    payload_t=_scan.transposed_stream(arrays["payload"],
-                                                      steps, dev, rows=idx),
-                    plen=to_tensor(plen, dev, rows=idx, dtype=np.int32)))
+                    stream=_scan.resident_stream(arrays["payload"], steps,
+                                                 dev, rows=idx),
+                    walk_plen=to_tensor(walk_plen, dev, rows=idx,
+                                        dtype=np.int32),
+                    walk_nn=to_tensor(walk_nn, dev, rows=idx,
+                                      dtype=np.int32),
+                    seg=None,
+                    has_plain=bool((~is_dict[idx]).any()),
+                    has_dict=bool(is_dict[idx].any())))
+        self.split = sp is not None
         self._gid = arrays["page_gid"].copy()
 
     @property
@@ -152,25 +166,19 @@ class ResidentColumn:
         """[K, N] match counts and [K, N] value counts of one walk over
         every bucket (K patterns fused)."""
         irs, dfa = _scan.resolve_matchers(pats)
-        dm = torch.from_numpy(_scan.dict_accepts(self._batch, dfas)).to(
-            self.device)
+        table = _scan.accept_table(_scan.dict_accepts(self._batch, dfas),
+                                   self.device)
         b = self._batch
-        kw = dict(irs=irs, dfa=dfa, vmax=b.vmax, nn_cap=b.nn_cap,
-                  max_def=b.max_def, negate=bool(negate))
         k = len(pats)
-        if self._split is not None:
-            s = self._split
-            c, v = _scan.device_scan_step(
-                s["core"], s["payload_t"], s["plen"], dm, steps=s["steps"],
-                split=(s["sub_nn"], s["seg"]), **kw)
-            return c.cpu().numpy(), np.broadcast_to(v.cpu().numpy(),
-                                                    (k, self.n_pages))
         counts = np.zeros((k, self.n_pages), np.int64)
         values = np.zeros((k, self.n_pages), np.int64)
         for bk in self._buckets:
             c, v = _scan.device_scan_step(
-                bk["core"], bk["payload_t"], bk["plen"], dm,
-                steps=bk["steps"], **kw)
+                bk["core"], bk["stream"], bk["walk_plen"], bk["walk_nn"],
+                table, irs=irs, dfa=dfa, vmax=b.vmax, nn_cap=b.nn_cap,
+                max_def=b.max_def, negate=bool(negate), steps=bk["steps"],
+                has_plain=bk["has_plain"], has_dict=bk["has_dict"],
+                seg=bk["seg"])
             counts[:, bk["idx"]] = c.cpu().numpy()
             values[:, bk["idx"]] = v.cpu().numpy()[None, :]
         return counts, values
@@ -188,7 +196,7 @@ class ResidentColumn:
         """K patterns in ONE walk over the resident byte stream; a pattern
         that needs the table DFA is scanned alone, and the split layout
         runs one walk per pattern.  Results come back in input order."""
-        if self._split is not None:
+        if self.split:
             return [self.scan(p, negate=negate, like=like) for p in patterns]
         pats, dfas = _scan.prepare_patterns(patterns, like=like)
         fused = [j for j, p in enumerate(pats)

@@ -3,8 +3,10 @@
 Port of `duckdb_parquet_parser_tpu.ops.decode` (`decode_levels`,
 `decode_dict_indices`, `DECODE_ARRAYS`) — the decode pieces the regex scan
 runs for dictionary pages.  When the prescan materialized the value-space
-planes (`def_levels`, `idx_vals`, its default) they are consumed directly;
-run expansion (ops/expand.py) is the path for PS_RUNS_ONLY batches.
+planes (`def_levels`, `idx_vals`, its default) the scan's dictionary kernel
+reads them as they lie (ops/kernels/dict_lookup.dict_count) and nothing
+here runs per query; run expansion (ops/expand.py), with the rank of each
+non-null value, is the path for PS_RUNS_ONLY batches.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ DECODE_ARRAYS = [
 ]
 
 
-def _fit(a: torch.Tensor, out_len: int, fill: int) -> torch.Tensor:
+def fit_columns(a: torch.Tensor, out_len: int, fill: int) -> torch.Tensor:
     """Columns [0, out_len) of `a`, padded with `fill` when it is
     narrower."""
     if a.shape[1] >= out_len:
@@ -38,10 +40,12 @@ def _fit(a: torch.Tensor, out_len: int, fill: int) -> torch.Tensor:
 
 def decode_levels(arrays, max_def: int, out_len: int):
     """(nonnull [N, V] bool, nn_idx [N, V] int32) from the definition
-    levels of each page."""
+    levels of each page.  The rank `nn_idx` costs a prefix sum over the
+    plane; only the run-expansion route of `decode_dict_indices` reads it,
+    so the scan calls this on PS_RUNS_ONLY batches alone."""
     num_values = arrays["page_num_values"]
     if max_def > 0 and "def_levels" in arrays:
-        levels = _fit(arrays["def_levels"], out_len, 0).to(torch.int32)
+        levels = fit_columns(arrays["def_levels"], out_len, 0).to(torch.int32)
     elif max_def > 0:
         levels = expand_hybrid(
             arrays["def_run_kind"], arrays["def_run_count"],
@@ -63,7 +67,7 @@ def decode_dict_indices(arrays, nn_idx, nn_len: int, nonnull=None):
     null and pad cells point at a neighbouring index, so pass `nonnull` to
     bound them (callers that omit it must AND `ok` with their own mask)."""
     if "idx_vals" in arrays:
-        dict_idx = _fit(arrays["idx_vals"], nn_idx.shape[1], -1).to(
+        dict_idx = fit_columns(arrays["idx_vals"], nn_idx.shape[1], -1).to(
             torch.int32)
     else:
         idx_stream = expand_hybrid(

@@ -1,7 +1,8 @@
 """Expansion of RLE/bit-packed hybrid run descriptors, and null bookkeeping.
 
 Port of `duckdb_parquet_parser_tpu.ops.expand` (`expand_hybrid` by its
-gather method, `nonnull_mask_and_index`, `take2d`).  The host prescan has
+gather method, `nonnull_mask_and_index`, `take2d`; `nonnull_mask` is its
+mask alone, without the rank).  The host prescan has
 already turned each page's hybrid section into a run descriptor table; here
 each value finds its run (scatter-add of run starts + prefix sum), gathers
 the run's attributes, and reads literal (bit-packed) values from a 4-byte
@@ -60,15 +61,20 @@ def expand_hybrid(run_kind, run_count, run_value, run_bitoff, run_vstart,
     return torch.where(kind_v == 1, literal, value_v)
 
 
-def nonnull_mask_and_index(def_levels, num_values, max_def: int,
-                           out_len: int):
-    """(nonnull [N, V] bool: def == max_def and v < num_values,
-    nn_idx [N, V] int32: the value's rank in the page's non-null stream,
-    meaningful only where nonnull)."""
+def nonnull_mask(def_levels, num_values, max_def: int,
+                 out_len: int) -> torch.Tensor:
+    """nonnull [N, V] bool: def == max_def and v < num_values."""
     v_iota = torch.arange(out_len, dtype=torch.int32,
                           device=def_levels.device)[None, :]
-    row_valid = v_iota < num_values[:, None]
-    nonnull = (def_levels == max_def) & row_valid
+    return (def_levels == max_def) & (v_iota < num_values[:, None])
+
+
+def nonnull_mask_and_index(def_levels, num_values, max_def: int,
+                           out_len: int):
+    """(nonnull as `nonnull_mask` gives it, nn_idx [N, V] int32: the
+    value's rank in the page's non-null stream, meaningful only where
+    nonnull)."""
+    nonnull = nonnull_mask(def_levels, num_values, max_def, out_len)
     nn_idx = torch.cumsum(nonnull.to(torch.int32), dim=1,
                           dtype=torch.int32) - 1
     return nonnull, nn_idx.clamp(min=0)

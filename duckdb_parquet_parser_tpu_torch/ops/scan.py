@@ -9,9 +9,9 @@ and the numpy `dfa_match`.  The device step
 the one-shot `ScanEngine.scan` goes through a resident column too.
 
 Per query: PLAIN pages walk their raw payload bytes through the stream
-matcher (kernel K1 for register-machine patterns); dictionary pages decode
-their levels and indices and map the per-entry accepts of the pattern
-through the dictionary lookup (kernel K2).  `negate` inverts the per-value
+matcher (kernel K1 for register-machine patterns); dictionary pages count
+the per-entry accepts of the pattern over their resident level and index
+planes in the dictionary kernel (K2's fused count entry).  `negate` inverts the per-value
 match among participating values.  Pages with a zero match count are the
 pruned ones.
 """
@@ -23,16 +23,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from duckdb_parquet_parser_tpu.ops.regex import (
-    UnsupportedPattern,
-    compile_pattern,
-    like_to_regex,
-)
-
+from ..host import bindings
 from ..host.batch import to_tensor
 from . import decode as _decode
 from . import strings
 from .kernels import dict_lookup, stream_matcher
+from .regex import UnsupportedPattern, compile_pattern, like_to_regex
 
 SPLIT_TRIGGER = 4096  # split when any page's payload exceeds this
 SPLIT_TARGET = 2048   # aim per-segment payload bytes
@@ -106,8 +102,6 @@ def split_payload_pages(arrays, trigger: int = SPLIT_TRIGGER,
     plen = np.asarray(arrays["page_payload_len"])
     if plen.size == 0 or int(plen.max()) <= trigger:
         return None
-    from duckdb_parquet_parser_tpu.host import bindings
-
     dims, segs = bindings.native_split_plan(
         np.asarray(arrays["payload"]), plen, np.asarray(arrays["page_nn"]),
         np.asarray(arrays["page_kind"]), target,
@@ -129,18 +123,39 @@ def dict_accepts(batch, dfas) -> np.ndarray:
     return np.zeros((len(dfas), 1), bool)
 
 
-def map_dict_accepts(core, tables, dict_idx):
-    """Per-row accept planes from global dict-entry accept tables
-    ([DN] int32 each) through the dictionary lookup.  Cells outside
-    ok & nonnull are arbitrary (callers AND them out).
+def accept_table(dict_match: np.ndarray, device) -> torch.Tensor:
+    """The [K, DN] uint8 accept table of one query on `device`, from
+    `dict_accepts`' bools."""
+    return to_tensor(np.asarray(dict_match).view(np.uint8), device)
 
-    The reference localizes the tables per page first when the page
-    dictionaries are small (a TPU select-cost choice); the outputs agree
-    on every cell that survives the caller's mask."""
-    dn = tables[0].shape[0]
-    base = core["page_dict_base"][:, None]
-    g = (base + dict_idx.clamp(min=0)).clamp(0, dn - 1).to(torch.int32)
-    return dict_lookup.dict_lookup(tables, g.contiguous())
+
+def dict_counts(core, table, *, vmax: int, nn_cap: int, max_def: int,
+                negate: bool):
+    """(counts [K, N] int32, values [N] int32) of the dictionary pages of
+    a bucket (0 for its other pages), from the [K, DN] uint8 accept table.
+
+    A batch with the materialized value-space planes goes through the
+    fused count kernel (K2's `dict_count`) in one launch.  A PS_RUNS_ONLY
+    batch expands its runs, ranks its non-null values, and maps the
+    accepts through K2's gather entry.  The reference localizes the tables
+    per page first when the page dictionaries are small (a select-cost
+    choice of its machine); the counts agree."""
+    if "idx_vals" in core and (max_def == 0 or "def_levels" in core):
+        return dict_lookup.dict_count(
+            core["idx_vals"], core.get("def_levels"), core["page_num_values"],
+            core["page_kind"], core["page_dict_base"], core["page_dict_size"],
+            table, vmax=vmax, max_def=max_def, negate=negate)
+    nonnull, nn_idx = _decode.decode_levels(core, max_def, vmax)
+    dict_idx, ok = _decode.decode_dict_indices(core, nn_idx, nn_cap,
+                                               nonnull=nonnull)
+    dn = table.shape[1]
+    g = (core["page_dict_base"][:, None] + dict_idx.clamp(min=0)).clamp(
+        0, dn - 1).to(torch.int32)
+    accept = dict_lookup.dict_lookup(table.to(torch.int32),
+                                     g.contiguous()) != 0
+    valid = ok & nonnull & (core["page_kind"] == 1)[:, None]
+    counts = ((accept ^ bool(negate)) & valid[None]).sum(2)
+    return counts.to(torch.int32), valid.sum(1).to(torch.int32)
 
 
 def resolve_matchers(patterns):
@@ -155,54 +170,52 @@ def resolve_matchers(patterns):
     return (), compile_pattern(patterns[0])
 
 
-def walk_hits(payload_t, plen, nn, irs, dfa, steps) -> torch.Tensor:
-    """[K, n] int32 accept counts of the byte walk."""
+def walk_hits(stream, plen, nn, irs, dfa, steps) -> torch.Tensor:
+    """[K, n] int32 accept counts of the byte walk over the resident
+    stream (`resident_stream`'s chunked layout).  The table-DFA walk is
+    plain PyTorch over the [steps, n] stream, which it unpacks here."""
     if irs:
-        return stream_matcher.match_stream(payload_t, plen, nn, irs, steps)[0]
+        return stream_matcher.match_stream(stream, plen, nn, irs, steps)[0]
     hits, _seen = strings.match_payload_stream(
-        payload_t, plen, nn, dfa.table, dfa.accept, steps)
+        stream_matcher.unchunk_stream(stream, steps), plen, nn, dfa.table,
+        dfa.accept, steps)
     return hits[None]
 
 
-def device_scan_step(core, payload_t, plen, dict_match, *, irs, dfa,
+def device_scan_step(core, stream, walk_plen, walk_nn, table, *, irs, dfa,
                      vmax: int, nn_cap: int, max_def: int, negate: bool,
-                     steps: int, split=None):
+                     steps: int, has_plain: bool = True,
+                     has_dict: bool = True, seg=None):
     """Counts of one page bucket for K patterns.
 
-    core: DECODE_ARRAYS tensors of the bucket's N pages; payload_t: the
-    [P, lanes] u8 stream; plen: [lanes] int32; dict_match: [K, DN] bool.
-    With `split=(sub_nn, seg_page)` the lanes are value-boundary segments
-    of the pages and their hits sum back to pages.  Returns
-    (counts [K, N] int64, values [N] int64)."""
-    is_dict = core["page_kind"] == 1
+    core: DECODE_ARRAYS tensors of the bucket's N pages; stream: the
+    resident byte stream of its lanes (`resident_stream`); walk_plen,
+    walk_nn: [lanes] int32 payload lengths and value counts, zero on the
+    lanes of dictionary pages; table: the query's [K, DN] uint8 accept
+    table.  `has_plain` / `has_dict` say which page kinds the bucket holds:
+    the walk runs only over PLAIN pages and the dictionary kernel only
+    over dictionary pages, and a kind the bucket lacks costs no launch.
+    With `seg` ([lanes] int64) the lanes are value-boundary segments of
+    the pages and their hits sum back to pages.  Returns (counts [K, N],
+    values [N]), integer tensors."""
     nn = core["page_nn"]
-    k = len(irs) if irs else 1
-    if split is None:
-        hits = walk_hits(payload_t, torch.where(is_dict, 0, plen),
-                         torch.where(is_dict, 0, nn), irs, dfa, steps)
-    else:
-        sub_nn, seg = split
-        seg = seg.long()
-        is_dict_sub = is_dict[seg]
-        hits_sub = walk_hits(payload_t, torch.where(is_dict_sub, 0, plen),
-                             torch.where(is_dict_sub, 0, sub_nn), irs, dfa,
-                             steps)
-        hits = torch.zeros((k, nn.shape[0]), dtype=torch.int32,
-                           device=nn.device).index_add_(1, seg, hits_sub)
-    plain_counts = (nn[None, :] - hits) if negate else hits
-
-    nonnull, nn_idx = _decode.decode_levels(core, max_def, vmax)
-    dict_idx, ok = _decode.decode_dict_indices(core, nn_idx, nn_cap,
-                                               nonnull=nonnull)
-    dms = map_dict_accepts(core, [dm.to(torch.int32) for dm in dict_match],
-                           dict_idx)
-    valid = ok & nonnull
-    counts = torch.stack([
-        torch.where(is_dict, (((dm != 0) ^ negate) & valid).sum(1),
-                    plain_counts[j])
-        for j, dm in enumerate(dms)])
-    values = torch.where(is_dict, valid.sum(1), nn)
-    return counts.long(), values.long()
+    walk = has_plain or not has_dict
+    if walk:
+        hits = walk_hits(stream, walk_plen, walk_nn, irs, dfa, steps)
+        if seg is not None:
+            hits = torch.zeros((hits.shape[0], nn.shape[0]),
+                               dtype=torch.int32,
+                               device=nn.device).index_add_(1, seg, hits)
+        plain_counts = (nn[None, :] - hits) if negate else hits
+        if not has_dict:
+            return plain_counts, nn
+    counts, values = dict_counts(core, table, vmax=vmax, nn_cap=nn_cap,
+                                 max_def=max_def, negate=negate)
+    if not walk:
+        return counts, values
+    is_dict = core["page_kind"] == 1
+    return (torch.where(is_dict, counts, plain_counts),
+            torch.where(is_dict, values, nn))
 
 
 def prepare_patterns(patterns, *, like: bool = False):
@@ -221,9 +234,11 @@ def prepare_patterns(patterns, *, like: bool = False):
     return pats, dfas
 
 
-def transposed_stream(payload: np.ndarray, steps: int, device,
-                      rows=None) -> torch.Tensor:
-    """The [steps, n] u8 byte stream of payload rows `rows` (default all),
-    transposed on `device`."""
+def resident_stream(payload: np.ndarray, steps: int, device,
+                    rows=None) -> torch.Tensor:
+    """The first `steps` bytes of payload rows `rows` (default all) on
+    `device`, in the stream matcher's layout: [ceil(steps / 16), n, 16] u8
+    (`stream_matcher.chunk_stream` of the transposed [steps, n] stream).
+    Made once at residency."""
     a = np.asarray(payload)[:, :steps]
-    return to_tensor(a, device, rows=rows).t().contiguous()
+    return stream_matcher.chunk_stream(to_tensor(a, device, rows=rows).t())

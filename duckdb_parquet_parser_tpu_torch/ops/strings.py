@@ -9,9 +9,10 @@ end the lane adds the accept bit to `hits[k]` (a zero-length value adds
 `accept_empty`).  The lane stops after `nn` values or `plen` bytes.
 
 This is the plain version the CUDA stream-matcher kernel is held against
-(ops/kernels/stream_matcher.py), and the path CPU tensors take.  The byte
-stream is the pre-transposed [steps, N] u8 layout the resident column
-keeps.
+(ops/kernels/stream_matcher.py), and the path CPU tensors take.  It walks
+the [steps, N] u8 stream (lane j's bytes down column j); the resident
+column keeps the kernel's chunked layout, which
+`stream_matcher.unchunk_stream` turns back into this one.
 
 Matchers: register machines (the reference's bit-parallel programs, or
 Shift-And chains for pure substring chains) come as traced IRs
@@ -28,11 +29,55 @@ import functools
 
 import torch
 
-from duckdb_parquet_parser_tpu.ops.bitprog import BitprogUnsupported
-from duckdb_parquet_parser_tpu.ops.regex import substring_chain
-from duckdb_parquet_parser_tpu.ops.strings import make_bitap_transition
+from .bitprog import (
+    BitprogUnsupported,
+    TransitionIR,
+    bitprog_ir,
+    eval_torch,
+    trace_transition,
+)
+from .regex import substring_chain
 
-from .bitprog import TransitionIR, bitprog_ir, eval_torch, trace_transition
+
+def make_bitap_transition(xp, needles: list[bytes]):
+    """Shift-And (bitap) transition for substring-chain patterns
+    ('%lit1%lit2%' / 'lit1.*lit2'); the port's own copy of the reference's
+    `ops/strings.make_bitap_transition`, kept generic over the `xp`
+    namespace because the IR tracer drives it.
+
+    Exact ordered-substring matching: register k is a bitset of the active
+    prefix lengths of needle k (all prefixes tracked simultaneously, so
+    self-overlapping needles are handled); needle k+1 starts seeding only
+    after needle k has completed.
+
+    Returns (transition(state_tuple, c) -> (next_tuple, accept [N] i32),
+    n_state_regs, accept_empty).
+    """
+    k_needles = len(needles)
+    specs = []
+    for nd in needles:
+        masks: dict[int, int] = {}
+        for pos, byte in enumerate(nd):
+            masks[byte] = masks.get(byte, 0) | (1 << pos)
+        specs.append((sorted(masks.items()), 1 << (len(nd) - 1)))
+
+    def transition(state, c):
+        regs, donebits = state[:-1], state[-1]
+        new_regs = []
+        new_done = donebits
+        for k, (mask_items, top_bit) in enumerate(specs):
+            mask = xp.zeros_like(c)
+            for byte, m in mask_items:
+                mask = mask | xp.where(c == byte, m, 0)
+            seed = 1 if k == 0 else ((donebits >> (k - 1)) & 1)
+            reg = ((regs[k] << 1) | seed) & mask
+            hit = ((reg & top_bit) != 0).astype(xp.int32)
+            new_done = new_done | (hit << k)
+            new_regs.append(reg)
+        accept = (new_done >> (k_needles - 1)) & 1
+        return tuple(new_regs) + (new_done,), accept
+
+    return transition, k_needles + 1, 0
 
 
 @functools.lru_cache(maxsize=256)

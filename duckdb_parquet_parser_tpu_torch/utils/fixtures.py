@@ -4,8 +4,9 @@
 `bench.gen_fixture` (TPC-H-lineitem-like: an `l_comment` string column of
 five words each, 1% null, beside INT64/DOUBLE columns, 500,000-row row
 groups); `dict_strings` writes a dictionary-encoded string column over
-several row groups, each with its own distinct values.  Both use the shared
-JAX-free writer and return the path, writing only when it does not exist.
+several row groups, each with its own distinct values.  Both use the port's
+writer (host/writer.py) and return the path, writing only when it does not
+exist.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+from ..host.schema import ParquetType
+from ..host.writer import ColumnSpec, ParquetWriter
 
 LINEITEM_WORDS = [
     b"carefully", b"furiously", b"quickly", b"slyly", b"blithely", b"requests",

@@ -83,8 +83,12 @@ def host_lib(tmp_path_factory):
 
 
 def _host_walk(lib, irs, pm, plen, nn):
-    pt = np.ascontiguousarray(pm.T)
-    steps, n = pt.shape
+    """The g++ build of the kernel's walk, over the kernel's chunked
+    layout of the stream."""
+    steps, n = pm.shape[1], pm.shape[0]
+    pt = stream_matcher.chunk_stream(
+        torch.from_numpy(np.ascontiguousarray(pm.T))).numpy()
+    assert pt.shape == (-(-steps // 16), n, 16) and pt.flags.c_contiguous
     hits = np.full((len(irs), n), -7, np.int32)
     seen = np.full(n, -7, np.int32)
     fn = getattr(lib, f"dpq_stream_host_{stream_matcher.tag_of(irs)}")

@@ -1,6 +1,7 @@
-"""The port runs without JAX: in a fresh interpreter that refuses to import
-jax, jaxlib or pyarrow, every port module imports and a resident scan runs
-on the CPU."""
+"""The port stands alone: in a fresh interpreter that refuses to import
+jax, jaxlib, pyarrow or the JAX package `duckdb_parquet_parser_tpu`, every
+port module imports, and a resident scan runs on the CPU over the port's
+own native library, built from `duckdb_parquet_parser_tpu_torch/host/native/`."""
 
 from __future__ import annotations
 
@@ -15,23 +16,31 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
+    BLOCKED = ("jax", "jaxlib", "pyarrow", "duckdb_parquet_parser_tpu")
+
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "pyarrow"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError("blocked: " + name)
             return None
 
     sys.meta_path.insert(0, Block())
     sys.path.insert(0, {root!r})
     import duckdb_parquet_parser_tpu_torch as pkg
+    from pathlib import Path
+    pkg_dir = Path(pkg.__file__).resolve().parent
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
 
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser_tpu_torch.host import build
+    from duckdb_parquet_parser_tpu_torch.host.schema import ParquetType
+    from duckdb_parquet_parser_tpu_torch.host.writer import (
+        ColumnSpec,
+        ParquetWriter,
+    )
     from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
 
     path = {path!r}
@@ -45,8 +54,10 @@ SCRIPT = textwrap.dedent("""
     res = col.scan("special.*requests")
     assert int(res.match_counts.sum()) == 40, res.match_counts
     assert int(res.value_counts.sum()) == 160 + 600, res.value_counts
-    assert not any(m.split(".")[0] in ("jax", "jaxlib", "pyarrow")
-                   for m in sys.modules)
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    lib = build.build_library()
+    assert lib.name.startswith("libdpqhost_torch-"), lib
+    assert build._NATIVE_DIR == pkg_dir / "host" / "native", build._NATIVE_DIR
     print("modules", len(names))
 """)
 

@@ -171,7 +171,7 @@ def test_split_layout_big_pages(tmp_path):
     pq.write_table(pa.table({"s": vals}), f, compression="none",
                    use_dictionary=False)
     port = ScanEngine(f).resident("s", device="cpu")
-    assert port._split is not None
+    assert port.split
     jax_col = JRC(JR(f), "s")
     for negate in (False, True):
         got = port.scan("special.*requests", negate=negate)

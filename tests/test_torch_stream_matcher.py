@@ -2,7 +2,9 @@
 stream_matcher.py) against the reference's Pallas kernel, run in interpret
 mode on the CPU as tests/test_pallas_stream.py runs it.  CPU tensors take
 the port's plain version; the kernel-vs-plain cases need a CUDA device.
-Tolerance 0: every output is an integer count."""
+The wrapper takes the kernel's chunked stream layout ([chunks, n, 16]);
+the layout converters round-trip.  Tolerance 0: every output is an integer
+count."""
 
 from __future__ import annotations
 
@@ -42,9 +44,15 @@ def _pallas(pm, plen, nn, pattern, lane_tile=128):
     return np.asarray(h), np.asarray(s)
 
 
+def _chunked(pm):
+    """The kernel's layout of the page matrix `pm` [n, pitch]."""
+    return stream_matcher.chunk_stream(
+        torch.from_numpy(np.ascontiguousarray(pm.T)))
+
+
 def _port(pm, plen, nn, patterns, device="cpu"):
     irs = tuple(ts.pattern_ir(p) for p in patterns)
-    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(device)
+    pt = _chunked(pm).to(device)
     return stream_matcher.match_stream(pt, torch.from_numpy(plen).to(device),
                                        torch.from_numpy(nn).to(device), irs)
 
@@ -104,7 +112,7 @@ def test_steps_bound_stops_the_walk():
     irs = (ts.pattern_ir("a.*z"),)
     pt = torch.from_numpy(np.ascontiguousarray(pm.T))
     steps = int(plen.max()) // 2
-    h1, s1 = stream_matcher.match_stream(pt, torch.from_numpy(plen),
+    h1, s1 = stream_matcher.match_stream(_chunked(pm), torch.from_numpy(plen),
                                          torch.from_numpy(nn), irs, steps)
     h0, s0 = stream_matcher.match_stream_plain(pt[:steps].contiguous(),
                                                torch.from_numpy(plen),
@@ -123,8 +131,38 @@ def test_render_shares_one_library_per_tuple_set():
     assert "#include <cuda_runtime.h>" in src
 
 
+@pytest.mark.parametrize("steps", [1, 15, 16, 17, 48, 75])
+def test_stream_layout_round_trips(steps):
+    """chunk_stream puts bytes [16 c, 16 c + 16) of lane j at [c, j, :],
+    zero-padded; unchunk_stream gives the stream back, both ways."""
+    rng = np.random.default_rng(steps)
+    stream = torch.from_numpy(rng.integers(1, 256, (steps, 7), dtype=np.uint8))
+    chunked = stream_matcher.chunk_stream(stream)
+    chunks = -(-steps // 16)
+    assert chunked.shape == (chunks, 7, 16) and chunked.is_contiguous()
+    padded = np.zeros((chunks * 16, 7), np.uint8)
+    padded[:steps] = stream.numpy()
+    for c in range(chunks):
+        for j in (0, 3, 6):
+            np.testing.assert_array_equal(chunked[c, j].numpy(),
+                                          padded[16 * c:16 * c + 16, j])
+    assert torch.equal(stream_matcher.unchunk_stream(chunked, steps), stream)
+    full = stream_matcher.unchunk_stream(chunked)
+    assert full.shape == (chunks * 16, 7)
+    assert torch.equal(stream_matcher.chunk_stream(full), chunked)
+
+
+def test_wrapper_rejects_the_unchunked_stream():
+    pm, plen, nn = _pages(np.random.default_rng(8), n_pages=4)
+    with pytest.raises(ValueError):
+        stream_matcher.match_stream(
+            torch.from_numpy(np.ascontiguousarray(pm.T)),
+            torch.from_numpy(plen), torch.from_numpy(nn),
+            (ts.pattern_ir("a"),))
+
+
 def test_unsupported_device_raises():
-    t = torch.zeros((4, 2), dtype=torch.uint8, device="meta")
+    t = torch.zeros((1, 2, 16), dtype=torch.uint8, device="meta")
     lens = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         stream_matcher.match_stream(t, lens, lens, (ts.pattern_ir("a"),))
@@ -139,7 +177,8 @@ def test_kernel_matches_plain(cuda, patterns):
     pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
     pl, nv = torch.from_numpy(plen).to(cuda), torch.from_numpy(nn).to(cuda)
     before = stream_matcher.launches
-    h1, s1 = stream_matcher.match_stream(pt, pl, nv, irs)
+    h1, s1 = stream_matcher.match_stream(stream_matcher.chunk_stream(pt), pl,
+                                         nv, irs)
     h0, s0 = stream_matcher.match_stream_plain(pt, pl, nv, irs)
     torch.cuda.synchronize()
     assert stream_matcher.launches == before + 1
@@ -148,11 +187,36 @@ def test_kernel_matches_plain(cuda, patterns):
 
 @pytest.mark.cuda
 def test_kernel_checks_its_inputs(cuda):
-    pt = torch.zeros((8, 4), dtype=torch.uint8, device=cuda)
+    pt = torch.zeros((1, 4, 16), dtype=torch.uint8, device=cuda)
     bad = torch.zeros(4, dtype=torch.int64, device=cuda)
     ok = torch.zeros(4, dtype=torch.int32, device=cuda)
     irs = (ts.pattern_ir("a"),)
     with pytest.raises(ValueError):
         stream_matcher.match_stream(pt, bad, ok, irs)
     with pytest.raises(ValueError):
-        stream_matcher.match_stream(pt.t(), ok, ok, irs)
+        stream_matcher.match_stream(pt.expand(2, 4, 16), ok, ok, irs)
+
+
+SASS = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x0 */
+                                                                             /* 0x1 */
+        /*0010*/               @P0 EXIT ;                                    /* 0x0 */
+        /*0020*/                   LDG.E.128.CONSTANT R8, desc[UR4][R14.64] ;/* 0x0 */
+        /*0030*/                   LOP3.LUT R5, R5, 0xff, RZ, 0xc0, !PT ;    /* 0x0 */
+        /*0040*/                   IMAD.MOV.U32 R11, RZ, RZ, R16 ;           /* 0x0 */
+        /*0050*/                   SEL R4, R4, RZ, !P3 ;                     /* 0x0 */
+        /*0060*/              @!P1 BRA P2, 0x30 ;                            /* 0x0 */
+        /*0070*/              @!P0 BRA 0x20 ;                                /* 0x0 */
+        /*0080*/                   EXIT ;                                    /* 0x0 */
+        /*0090*/                   BRA 0x90;                                 /* 0x0 */
+"""
+
+
+def test_loop_instructions_counts_the_innermost_loop():
+    """The measuring aid behind K1's operation bound: the opcodes between
+    the target of the shortest backward branch and the branch."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import build
+
+    assert build.loop_instructions(SASS) == {"LOP3": 1, "IMAD": 1, "SEL": 1,
+                                             "BRA": 1}
+    assert build.loop_instructions("  /*0000*/  EXIT ;  /* 0x0 */") == {}

@@ -11,6 +11,16 @@ implementation).  Warm queries reuse kernels built up front; one cold
 query, on a pattern built for the first time, includes its kernel build.
 One warm query per fixture runs under torch.profiler for the device busy
 time, the launches and the time per kernel (traces in build/profile/).
+Then the decode path at the same scale: three fixed-width lineitem columns
+and a dictionary-encoded INT64 column of 2M rows are prescanned, uploaded
+once and decoded on the card (`decode_fixed_device`, `_materialize_fixed`),
+and must equal, bit for bit, what `read_column` gives through the native
+column sweep (independent C++ code); small random batches (boolean bits,
+mixed PLAIN / dictionary pages, out-of-range indices, run expansion) decode
+on the card as on the CPU; 2M seeded DELTA_BINARY_PACKED values decode to
+their seed; and the block scans (`scan_batched`, `scan_streaming`), the
+row-level matches (`matching_rows`) and the fused single step
+(`single_chip_forward`) equal the native scan.
 Each kernel is timed at the main path's shapes beside its plain version,
 its bound (the larger of bytes over the card's memory rate and int32
 operations over the card's int32 rate, for the work these inputs need) and,
@@ -59,7 +69,13 @@ SCAN_PATTERNS = BENCH_PATTERNS[:4]
 # stream matcher's nvcc build, as a new ad-hoc pattern does
 COLD_PATTERN = "furiously.*deposits"
 DICT_PATTERNS = ["san.*-1[0-9]", "new (york|orleans)-2", "^bo", "ttle-3[0-9]*$"]
+# the pattern of the fused single step on `build_example_batch`'s file
+EXAMPLE_PATTERN = "word_[0-3]_"
 MAIN_ROWS = 2_000_000
+# the decode path: (fixture, column) at MAIN_ROWS rows, four row groups
+DECODE_COLUMNS = [("lineitem", "l_quantity"), ("lineitem", "l_extendedprice"),
+                  ("lineitem", "l_tax"), ("dict_ints", "k")]
+DELTA_PAGES, DELTA_VALUES_PER_PAGE = 2000, 1000
 K1_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/stream_matcher.cu.in"
 K2_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/dict_lookup.cu"
 K1_REPLACES = "duckdb_parquet_parser_tpu/ops/pallas/stream_matcher.py:94"
@@ -518,7 +534,7 @@ def run_main_path(device, rows, dict_rows_per_rg, dict_distinct,
                    hits, pruned))
     launches = {"stream_matcher": stream_matcher.launches,
                 "dict_lookup": dict_lookup.launches}
-    return report, launches, col, dcol
+    return report, launches, col, dcol, eng, deng
 
 
 def query_launches(fn) -> dict:
@@ -534,13 +550,23 @@ def query_launches(fn) -> dict:
             "dict_lookup": dict_lookup.launches - before[1]}
 
 
-def best_of(fns: dict, reps: int, rounds: int = 2) -> dict:
+def best_of(fns: dict, reps: int, rounds: int = 6) -> dict:
     """{name: least ms per call} over `rounds` rounds that time each of
-    `fns` in turn, so neighbours on the card's host disturb all alike."""
+    `fns` in turn, so neighbours on the card's host disturb all alike.
+    These calls cost what the host spends on a launch, and that switches
+    between two levels within seconds, whatever the process did before
+    (utils/probe_launch_cost.py), so the slowest round is logged beside
+    the least."""
     best = {name: float("inf") for name in fns}
+    worst = {name: 0.0 for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
-            best[name] = min(best[name], timed(fn, reps)[0])
+            ms = timed(fn, reps)[0]
+            best[name] = min(best[name], ms)
+            worst[name] = max(worst[name], ms)
+    log(f"{rounds} rounds of {reps} calls, least-slowest round: "
+        + ", ".join(f"{name} {best[name]:.4f}-{worst[name]:.4f} ms"
+                    for name in fns))
     return best
 
 
@@ -641,7 +667,7 @@ def time_kernels(col, dcol, device, ops_per_s):
     b_ms, b_by = bound(n_bytes, cells * (10 + 4 * k), ops_per_s)
     log(f"K2 count entry at idx_vals {(n, idx_w)}, DN={dn}, K={k}: kernel "
         f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms per call (least of "
-        f"2 rounds of 200); {cells} cells, {n_bytes} bytes moved: bound "
+        f"6 rounds of 200); {cells} cells, {n_bytes} bytes moved: bound "
         f"{b_ms:.5f} ms by {b_by}")
     k2 = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
           "bound_ms": b_ms, "bound_by": b_by}
@@ -662,13 +688,454 @@ def time_kernels(col, dcol, device, ops_per_s):
     g_ms, g_by = bound(g_bytes, 4 * g.numel(), ops_per_s)
     log(f"K2 gather entry at gidx {tuple(g.shape)}, DN={dn}, 1 plane: kernel "
         f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, the PyTorch call "
-        f"plane[gidx.long()] {t['library']:.4f} ms per call (least of 2 "
+        f"plane[gidx.long()] {t['library']:.4f} ms per call (least of 6 "
         f"rounds of 200); {g_bytes} bytes moved: bound {g_ms:.5f} ms by "
         f"{g_by}")
     k2.update(library_ms=t["library"], gather_ms=t["kernel"],
               gather_plain_ms=t["plain"], gather_bound_ms=g_ms,
               library_call="plane[gidx.long()], beside gather_ms")
     return k1, k2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile_line(label: str, fn) -> str:
+    """One call of `fn` under torch.profiler: its kernel launches, device
+    busy time and the kernels that took most of it."""
+    _wall, busy, n, by_name = device_profile(
+        fn, ROOT / "build" / "profile" / f"{label}.json")
+    if busy is None:
+        raise AssertionError(f"profile {label}: the profiler recorded no "
+                             "device events")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return (f"{n} kernel launches, {busy:.4f} ms device busy under the "
+            "profiler; top: "
+            + "; ".join(f"{k[:40]} {v:.4f} ms" for k, v in top))
+
+
+def same_column(label, values, valid, ref):
+    """A decoded column against `read_column`'s: the validity, and the
+    values compared as integers (never as floats: NaN payloads and -0.0
+    must survive)."""
+    import numpy as np
+
+    a, b = np.asarray(values), np.asarray(ref.values)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{label}: {a.dtype}{a.shape} decoded, "
+                             f"{b.dtype}{b.shape} read")
+    view = {1: np.uint8, 4: np.int32, 8: np.int64}[a.dtype.itemsize]
+    if not (np.array_equal(np.asarray(valid), np.asarray(ref.valid))
+            and np.array_equal(a.view(view), b.view(view))):
+        raise AssertionError(f"{label} differs from the native column sweep")
+
+
+def flatten_planes(batch, planes, nonnull):
+    """(values, valid) of a decoded batch, page-major, as
+    `_materialize_fixed` flattens them."""
+    from duckdb_parquet_parser_tpu_torch.host.reader import _flatten_decoded
+
+    col = _flatten_decoded(batch, planes, nonnull)
+    return col.values, col.valid
+
+
+def run_decode_path(device, rows, fixtures: Path, ops_per_s):
+    """The decode path at the benchmark's scale: each column is prescanned,
+    uploaded once, decoded on the card by `decode_fixed_device` and by
+    `_materialize_fixed`, and held bit for bit against `read_column` (the
+    native PS_COLUMN sweep).  Returns the dictionary column's lookup inputs
+    (`table`, `gidx`) and the launches of both kernels in one decode of it,
+    read from the wrappers' counters around that decode."""
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.host.reader import (
+        ParquetReader,
+        _materialize_fixed,
+    )
+    from duckdb_parquet_parser_tpu_torch.ops import decode
+    from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
+
+    t0 = time.perf_counter()
+    paths = {
+        "lineitem": fx.lineitem(fixtures / f"lineitem_{rows}.parquet", rows),
+        "dict_ints": fx.dict_ints(fixtures / f"dict_ints_{rows}.parquet",
+                                  rows)}
+    log(f"decode fixtures ready in {time.perf_counter() - t0:.1f} s")
+    lookup_inputs = None  # of the dictionary column, for the kernel timing
+    for fixture, col in DECODE_COLUMNS:
+        label = f"decode {col}"
+        reader = ParquetReader(str(paths[fixture]))
+        if (reader.num_rows() != rows
+                or reader.num_row_groups() != -(-rows // 500_000)):
+            raise AssertionError(f"{fixture}: {reader.num_rows()} rows in "
+                                 f"{reader.num_row_groups()} row groups")
+        t0 = time.perf_counter()
+        ref = reader.read_column(col)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        batch = reader.prescan(col)
+        prescan_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core, plain, table, bits = decode.upload_fixed(
+            batch.arrays, batch.plain_planes, batch.dict_planes,
+            batch.bool_bits, device)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        kw = dict(max_def=batch.max_def, out_len=batch.vmax,
+                  nn_len=batch.nn_cap, mode=batch.mode, device=device)
+        counted = query_launches(lambda: decode.decode_fixed_device(
+            core, plain, table, bits, **kw))
+        per_decode = counted["dict_lookup"]
+        if per_decode != (1 if batch.mode != "plain" else 0):
+            raise AssertionError(f"{label}: {per_decode} dictionary-kernel "
+                                 f"launches in one {batch.mode} decode")
+        if counted["stream_matcher"] != 0:
+            raise AssertionError(f"{label}: the stream matcher was launched "
+                                 f"{counted['stream_matcher']} times in a "
+                                 "decode")
+        # three rounds of 3 calls after a warm-up: the decode is a dozen
+        # eager launches, so a round on a busy host, or one in which the
+        # caching allocator still calls cudaMalloc, reads several times the
+        # least; both are printed, with the cudaMalloc calls
+        # made while timing
+        mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+        times = []
+        for _ in range(3):
+            t, (planes, nonnull) = timed(lambda: decode.decode_fixed_device(
+                core, plain, table, bits, **kw), 3)
+            times.append(t)
+        ms, worst = min(times), max(times)
+        mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+        same_column(label, *flatten_planes(batch, planes, nonnull), ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _materialize_fixed(batch, device=device)
+        mat_ms = (time.perf_counter() - t0) * 1e3
+        same_column(f"_materialize_fixed {col}", got.values, got.valid, ref)
+        # what one decode must move: the planes it reads, once, and the
+        # planes and the validity it writes, once
+        if batch.mode == "plain":
+            read = nbytes(*plain, core["page_num_values"]) + (
+                nbytes(core["def_levels"]) if batch.max_def > 0 else 0)
+        else:
+            read = nbytes(core["idx_vals"], core["page_dict_base"],
+                          core["page_dict_size"], table)
+        moved = read + nbytes(*planes, nonnull)
+        b_ms, _by = bound(moved, 0, ops_per_s)
+        uploaded = nbytes(*core.values(), *plain,
+                          *([table] if len(table) else []),
+                          *([] if bits is None else [bits]))
+        log(f"{label} ({batch.type.name}, max_def {batch.max_def}, mode "
+            f"{batch.mode}, {batch.n_pages} pages x {batch.vmax}): "
+            f"{ms:.4f} ms per decode on the card (least of 3 rounds of 3 "
+            f"calls; the slowest round {worst:.4f} ms, {mallocs} cudaMalloc "
+            "allocations while timing), "
+            f"{rows / ms * 1e3:.4g} rows/s, {per_decode} dictionary-kernel "
+            f"launch(es); {moved} bytes "
+            f"must move: bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}% of the "
+            f"decode); upload {upload_ms:.1f} ms for {uploaded} bytes, host "
+            f"prescan {prescan_ms:.1f} ms; _materialize_fixed on the card "
+            f"{mat_ms:.1f} ms, read_column (native host sweep) {read_ms:.1f} "
+            "ms; all equal bit for bit")
+        log(f"profile {label}: " + profile_line(
+            f"decode_{col}", lambda: decode.decode_fixed_device(
+                core, plain, table, bits, **kw)))
+        if col == "k":
+            wall, busy, n, _by_name = device_profile(
+                lambda: _materialize_fixed(batch, device=device),
+                ROOT / "build" / "profile" / "materialize_k.json")
+            if busy is None:
+                raise AssertionError("profile materialize_k: the profiler "
+                                     "recorded no device events")
+            log(f"profile _materialize_fixed(k) on the card: wall {wall:.3f} "
+                f"ms, device busy {busy:.4f} ms "
+                f"({100 * (1 - busy / wall):.2f}% idle), {n} kernel launches")
+            dn = table.shape[1]
+            idx = decode.fit_columns(core["idx_vals"], batch.vmax, -1).to(
+                torch.int32)
+            gidx = (core["page_dict_base"][:, None] + idx.clamp(min=0)).clamp(
+                0, dn - 1).to(torch.int32).contiguous()
+            lookup_inputs = {"table": table, "gidx": gidx,
+                             "launches": counted}
+    return lookup_inputs
+
+
+def time_decode_lookup(table, gidx, ops_per_s) -> dict:
+    """K2's gather entry at the dictionary decode's shape beside its plain
+    version, the one PyTorch call and its bound."""
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dict_lookup
+
+    t = best_of({
+        "kernel": lambda: dict_lookup.dict_lookup(table, gidx),
+        "library": lambda: table[:, gidx.long()],
+        "plain": lambda: dict_lookup.dict_lookup_plain(table, gidx)}, 50)
+    got = dict_lookup.dict_lookup(table, gidx)
+    err = int((got - dict_lookup.dict_lookup_plain(table, gidx)).abs().max())
+    moved = nbytes(table, gidx, got)
+    b_ms, b_by = bound(moved, gidx.numel() * table.shape[0], ops_per_s)
+    log(f"K2 gather entry inside the decode of k, gidx {tuple(gidx.shape)}, "
+        f"P={table.shape[0]}, DN={table.shape[1]}: kernel "
+        f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, the PyTorch call "
+        f"table[:, gidx.long()] {t['library']:.4f} ms per call (least of 6 "
+        f"rounds of 50); {moved} bytes moved: bound {b_ms:.5f} ms by {b_by} "
+        f"({100 * b_ms / t['kernel']:.1f}% of the kernel's time)")
+    return {"decode_shape": f"gidx {list(gidx.shape)}, P={table.shape[0]}, "
+                            f"DN={table.shape[1]}",
+            "decode_max_abs_err": err, "decode_ms": t["kernel"],
+            "decode_plain_ms": t["plain"], "decode_library_ms": t["library"],
+            "decode_bound_ms": b_ms, "decode_bound_by": b_by}
+
+
+def check_small_decodes(device, fixtures: Path):
+    """Device decode against CPU decode on a few thousand small pages:
+    boolean bits, mixed PLAIN / dictionary pages, a dictionary page with
+    out-of-range indices and a narrow index plane, a REQUIRED dictionary
+    column, each with materialized planes and with PS_RUNS_ONLY run
+    expansion.  Exact equality."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.host import bindings
+    from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
+    from duckdb_parquet_parser_tpu_torch.host.schema import ParquetType
+    from duckdb_parquet_parser_tpu_torch.host.writer import (
+        ColumnSpec,
+        ParquetWriter,
+    )
+    from duckdb_parquet_parser_tpu_torch.ops import decode
+
+    path = fixtures / "small_decodes.parquet"
+    if not path.exists():
+        rng = np.random.default_rng(17)
+        w = ParquetWriter(str(path), [
+            ColumnSpec("flag", ParquetType.BOOLEAN, optional=True),
+            ColumnSpec("v", ParquetType.INT64, optional=True),
+            ColumnSpec("code", ParquetType.INT32),
+            ColumnSpec("f", ParquetType.DOUBLE, optional=True)])
+        for rg in range(12):
+            n = int(rng.integers(4000, 9000))
+            valid = (rng.random(n) > 0.15).astype(np.uint8)
+            v = (rng.integers(0, 9, n) * 1_000_003 if rg % 2 == 0
+                 else rng.integers(-(2**62), 2**62, n))   # dictionary / PLAIN
+            w.write_row_group({
+                "flag": (rng.random(n) > 0.5, valid),
+                "v": (v, valid),
+                "code": np.asarray(rng.choice([7, 11, 13, 17], n), np.int32),
+                "f": (rng.standard_normal(n), valid)})
+        w.close()
+    # the writer dictionary-encodes a column chunk with few distinct values,
+    # so PLAIN boolean pages (packed bits) come from row groups of 8 rows
+    bits_path = fixtures / "small_bool_bits.parquet"
+    if not bits_path.exists():
+        rng = np.random.default_rng(19)
+        w = ParquetWriter(str(bits_path), [
+            ColumnSpec("bits", ParquetType.BOOLEAN, optional=True)])
+        for _rg in range(600):
+            w.write_row_group({"bits": (rng.random(8) > 0.5,
+                                        (rng.random(8) > 0.1).astype(np.uint8))})
+        w.close()
+    readers = {c: ParquetReader(str(path)) for c in ("flag", "v", "code", "f")}
+    readers["bits"] = ParquetReader(str(bits_path))
+
+    def both(batch, arrays):
+        kw = dict(max_def=batch.max_def, out_len=batch.vmax,
+                  nn_len=batch.nn_cap, mode=batch.mode)
+        args = (arrays, batch.plain_planes, batch.dict_planes, batch.bool_bits)
+        return (decode.decode_fixed_device(*args, **kw, device=device),
+                decode.decode_fixed_device(*args, **kw, device="cpu"))
+
+    n_cases = n_pages = 0
+    modes = set()
+    rng = np.random.default_rng(18)
+    for col, reader in readers.items():
+        for flags in (0, bindings.PS_RUNS_ONLY):
+            batch = reader.prescan(col, flags=flags)
+            if col == "bits" and batch.bool_bits is None:
+                raise AssertionError("the boolean fixture has no PLAIN page")
+            cases = [("", batch.arrays)]
+            if col == "code" and flags == 0:
+                idx = np.array(batch.arrays["idx_vals"])
+                hit = rng.random(idx.shape) < 0.05
+                idx[hit] = rng.choice([4, 5, 100, 30000], int(hit.sum()))
+                cases += [(" with out-of-range indices",
+                           {**batch.arrays, "idx_vals": idx}),
+                          (" with a narrow index plane",
+                           {**batch.arrays, "idx_vals": idx.astype(np.int16)})]
+            for what, arrays in cases:
+                (gp, gn), (wp, wn) = both(batch, arrays)
+                if not (torch.equal(gn.cpu(), wn) and len(gp) == len(wp)
+                        and all(torch.equal(a.cpu(), b)
+                                for a, b in zip(gp, wp))):
+                    raise AssertionError(
+                        f"decode of {col}{what} (flags {flags}) on the card "
+                        "differs from the CPU's")
+                tampered = np.zeros(tuple(gn.shape), bool)
+                if what:
+                    w = min(hit.shape[1], tampered.shape[1])
+                    tampered[:, :w] = hit[:, :w]
+                if bool(gn.cpu().numpy()[tampered].any()):
+                    raise AssertionError("an out-of-range index decoded to a "
+                                         "value")
+                n_cases += 1
+                n_pages += batch.n_pages
+            modes.add((col, batch.mode))
+    if not ({("flag", "dict"), ("v", "mixed"), ("code", "dict"),
+             ("f", "plain")} <= modes
+            and modes & {("bits", "plain"), ("bits", "mixed")}):
+        raise AssertionError(f"small decodes covered {sorted(modes)}")
+    log(f"small decodes, card vs CPU: {n_cases} cases over {n_pages} pages "
+        "(boolean bits, mixed PLAIN / dictionary pages, out-of-range and "
+        "narrow indices, REQUIRED dictionary, run expansion), exact")
+
+
+def run_delta(device, ops_per_s):
+    """`decode_delta_planes` on the card over 2M seeded values (miniblock
+    widths 0-64, int64 wrap) equals the values they were packed from."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops import delta
+    from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
+
+    t0 = time.perf_counter()
+    dims, arrays, values, nn = fx.delta_planes(29, DELTA_PAGES,
+                                               DELTA_VALUES_PER_PAGE)
+    gen_s = time.perf_counter() - t0
+    n_values = int(nn.sum())
+    if n_values != 2_000_000:
+        raise AssertionError(f"the delta fixture holds {n_values} values")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for k, a in arrays.items()}
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    out_len = int(dims["nn_cap"])
+    times = []
+    for _ in range(3):
+        t, planes = timed(
+            lambda: delta.decode_delta_planes(dev, dims, out_len, 2), 3)
+        times.append(t)
+    ms, worst = min(times), max(times)
+    lo, hi = (p.cpu().numpy() for p in planes)
+    got = (hi.astype(np.int64) << 32) | (lo.astype(np.int64) & 0xFFFFFFFF)
+    if not np.array_equal(got, values):
+        raise AssertionError("delta decode on the card differs from the "
+                             "seed's values")
+    widths = sorted(int(b) for b in np.unique(arrays["delta_bw"]))
+    if widths[0] != 0 or widths[-1] != 64:
+        raise AssertionError(f"delta fixture widths {widths}")
+    moved = nbytes(*dev.values(), *planes)
+    b_ms, _by = bound(moved, 0, ops_per_s)
+    log(f"delta: {n_values} values in {DELTA_PAGES} pages, {len(widths)} "
+        f"miniblock widths {widths[0]}-{widths[-1]}: {ms:.4f} ms per decode "
+        f"on the card (least of 3 rounds of 3 calls; the slowest round "
+        f"{worst:.4f} ms), {n_values / ms * 1e3:.4g} rows/s; {moved} bytes must "
+        f"move: bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}% of the decode); "
+        f"upload {upload_ms:.1f} ms, fixture made in {gen_s:.1f} s; equal to "
+        "the seed's values")
+    log("profile delta: " + profile_line(
+        "delta", lambda: delta.decode_delta_planes(dev, dims, out_len, 2)))
+
+
+def run_block_scans(device, eng, deng, fixtures: Path):
+    """`scan_batched` and `scan_streaming` against the native exact scan,
+    `matching_rows` on the card against `match_rows` on the CPU, and the
+    fused single step against the resident scan."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.models.scan import (
+        ResidentColumn,
+        build_example_batch,
+        single_chip_forward,
+    )
+    from duckdb_parquet_parser_tpu_torch.ops import scan
+    from duckdb_parquet_parser_tpu_torch.utils.metrics import get_metrics
+
+    pat = BENCH_PATTERNS[0]
+    n_rows = eng.reader.num_rows()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.scan_streaming("l_comment", pat, device=device)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    hits, pruned = assert_same(res, eng, "l_comment", pat, False)
+    log(f"scan_streaming l_comment ~ {pat!r}, first call on a file that is "
+        f"not resident (kernel built before): {cold_ms:.1f} ms, "
+        f"{n_rows / cold_ms * 1e3:.4g} rows/s, {hits} hits, {pruned} pages "
+        "pruned; equal to native scan page for page")
+    for name, fn in (
+            ("scan_streaming", lambda **kw: eng.scan_streaming(
+                "l_comment", pat, device=device, **kw)),
+            ("scan_streaming(block_pages=4096)", lambda **kw:
+                eng.scan_streaming("l_comment", pat, block_pages=4096,
+                                   device=device, **kw)),
+            ("scan_batched", lambda **kw: eng.scan_batched(
+                "l_comment", pat, device=device, **kw))):
+        for negate in (False, True):
+            t0 = time.perf_counter()
+            launches = query_launches(
+                lambda: assert_same(fn(negate=negate), eng, "l_comment", pat,
+                                    negate))
+            log(f"{name} l_comment ~ {pat!r}{' negate' if negate else ''}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms with its check, "
+                f"launches {launches}; equal to native scan")
+            least = (eng.reader.num_row_groups()
+                     if name.startswith("scan_streaming") else 1)
+            if launches["stream_matcher"] < least:
+                raise AssertionError(f"{name}: the stream matcher ran "
+                                     f"{launches['stream_matcher']} times")
+    stages = get_metrics().summary()
+    prescan, dispatch = stages["prescan"][-1], stages["scan_dispatch"][-1]
+    log(f"scan_batched's stages (its own metrics): host prescan "
+        f"{prescan['seconds'] * 1e3:.1f} ms for {prescan['pages']} pages; "
+        f"dispatch of {dispatch['batches']} blocks "
+        f"{dispatch['seconds'] * 1e3:.1f} ms, of which the host's copies "
+        f"into the pinned block buffers "
+        f"{dispatch['host_copy_seconds'] * 1e3:.1f} ms")
+    for name, fn in (("scan_streaming", deng.scan_streaming),
+                     ("scan_batched", deng.scan_batched)):
+        launches = query_launches(lambda: assert_same(
+            fn("city", DICT_PATTERNS[0], device=device), deng, "city",
+            DICT_PATTERNS[0], False))
+        log(f"{name} city ~ {DICT_PATTERNS[0]!r}: launches {launches}; equal "
+            "to native scan")
+        if launches["dict_lookup"] < 1:
+            raise AssertionError(f"{name}: the dictionary kernel did not run")
+
+    t0 = time.perf_counter()
+    rows = eng.matching_rows("l_comment", pat, device=device)
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_rows = scan.match_rows(eng.reader.prescan("l_comment", pad_strings=8),
+                               pat, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(rows, cpu_rows) and len(rows) == hits):
+        raise AssertionError("matching_rows on the card differs from "
+                             "match_rows on the CPU or from the page counts")
+    log(f"matching_rows l_comment ~ {pat!r}: {len(rows)} rows in "
+        f"{rows_ms:.1f} ms on the card ({cpu_ms:.1f} ms on the CPU), equal, "
+        "and as many as the page scan's matches")
+
+    example = fixtures / "example"
+    example.mkdir(parents=True, exist_ok=True)
+    reader, batch = build_example_batch(str(example))
+    fn, args = single_chip_forward(batch, EXAMPLE_PATTERN, device=device)
+    launches = query_launches(lambda: fn(*args))
+    counts = fn(*args).cpu().numpy()
+    want = ResidentColumn(reader, "s", device=device).scan(EXAMPLE_PATTERN)
+    if not np.array_equal(counts, want.match_counts):
+        raise AssertionError("single_chip_forward differs from the resident "
+                             "scan")
+    if launches != {"stream_matcher": 1, "dict_lookup": 1}:
+        raise AssertionError(f"single_chip_forward launched {launches}")
+    log(f"single_chip_forward on the example batch ({batch.n_pages} pages): "
+        f"{int(counts.sum())} matches, launches {launches}; equal to the "
+        "resident scan")
 
 
 def main() -> int:
@@ -708,8 +1175,8 @@ def main() -> int:
     lib = host_build.build_library()
     log(f"native host library: {time.perf_counter() - t0:.1f} s "
         f"({lib.name})")
-    tuples = ([(p,) for p in STREAM_PATTERNS + BENCH_PATTERNS + DICT_PATTERNS]
-              + [FUSED, tuple(BENCH_PATTERNS[:3])])
+    tuples = ([(p,) for p in STREAM_PATTERNS + BENCH_PATTERNS + DICT_PATTERNS
+               + [EXAMPLE_PATTERN]] + [FUSED, tuple(BENCH_PATTERNS[:3])])
     t0 = time.perf_counter()
     stream_matcher.prepare([tuple(strings.pattern_ir(p) for p in t)
                             for t in tuples])
@@ -721,7 +1188,7 @@ def main() -> int:
 
     check_stream_kernel(device)
     check_dict_kernel(device)
-    report, launches, col, dcol = run_main_path(
+    report, launches, col, dcol, eng, deng = run_main_path(
         device, MAIN_ROWS, 100_000, 1500, ROOT / "build" / "fixtures")
     for column, pat, neg, ms, rows, hits, pruned in report:
         extra = "" if hits is None else f", {hits} hits, {pruned} pages pruned"
@@ -733,6 +1200,29 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
     check_stream_kernel_split(col, device)
     check_dict_count_kernel(device, dcol)
+
+    # the decode path and the block scans, counted apart from the resident
+    # scan's launches above
+    stream_matcher.launches = 0
+    dict_lookup.launches = 0
+    fixtures = ROOT / "build" / "fixtures"
+    k_decode = run_decode_path(device, MAIN_ROWS, fixtures, ops_per_s)
+    decode_launches = {"stream_matcher": stream_matcher.launches,
+                       "dict_lookup": dict_lookup.launches}
+    run_delta(device, ops_per_s)
+    run_block_scans(device, eng, deng, fixtures)
+    slice_launches = {"stream_matcher": stream_matcher.launches,
+                      "dict_lookup": dict_lookup.launches}
+    log(f"decode-path launches: {decode_launches}; with the block scans: "
+        f"{slice_launches}")
+    if decode_launches["dict_lookup"] <= 0:
+        raise AssertionError("the dictionary kernel was not launched on the "
+                             "decode path")
+    for name, n in slice_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the decode and "
+                                 "block-scan paths")
+    check_small_decodes(device, fixtures)
 
     queries = (("l_comment", col, lambda: col.scan(BENCH_PATTERNS[0])),
                ("city", dcol, lambda: dcol.scan(DICT_PATTERNS[0])))
@@ -768,16 +1258,21 @@ def main() -> int:
                                  f"still runs: {ranks}")
 
     k1, k2 = time_kernels(col, dcol, device, ops_per_s)
+    k2.update(time_decode_lookup(k_decode["table"], k_decode["gidx"],
+                                 ops_per_s))
     for name, entry in (("K1", k1), ("K2", k2)):
-        if entry["max_abs_err"] != 0:
+        if entry["max_abs_err"] != 0 or entry.get("decode_max_abs_err", 0):
             raise AssertionError(f"{name} differs from its plain version")
+    per_query["decode_k"] = k_decode["launches"]
     kernels = [
         {"name": "stream_matcher", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["stream_matcher"],
+         "launches_decode_and_block_scans": slice_launches["stream_matcher"],
          "launches_per_query": {q: v["stream_matcher"]
                                 for q, v in per_query.items()}, **k1},
         {"name": "dict_lookup", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["dict_lookup"],
+         "launches_decode_and_block_scans": slice_launches["dict_lookup"],
          "launches_per_query": {q: v["dict_lookup"]
                                 for q, v in per_query.items()}, **k2},
     ]

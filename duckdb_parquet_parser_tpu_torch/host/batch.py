@@ -1,18 +1,25 @@
 """DecodeBatch — the prescan's page batch, and its move onto a device.
 
-JAX-free counterpart of `duckdb_parquet_parser_tpu.host.batch.DecodeBatch`
-(whose module imports the reference's JAX decode).  It holds the native
-prescan's `dims` and numpy `arrays` — the same output both packages get
-from `host.bindings.native_prescan` — and `to_device` turns them into
-tensors on a torch device.
+Counterpart of `duckdb_parquet_parser_tpu.host.batch.DecodeBatch`.  It holds
+the native prescan's `dims` and numpy `arrays` — the same output both
+packages get from `host.bindings.native_prescan` — with typed views (the
+int32 value planes of the fixed-width decode) and page slicing, and
+`to_device` turns the arrays into tensors on a torch device.  The
+reference's per-page local dictionary tables (`dict_planes_pp`) served its
+select-based lookup, a cost choice of the TPU with identical outputs; the
+port gathers from the one concatenated table and does not build them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 
 import numpy as np
 import torch
+
+from ..ops import decode as _decode
+from .schema import ParquetType
 
 _PER_PAGE_ARRAYS = [
     "page_num_values", "page_nn", "page_kind", "page_def_bw", "page_idx_bw",
@@ -25,6 +32,14 @@ _PER_PAGE_ARRAYS = [
     "payload", "page_payload_len",
     "def_levels", "idx_vals",
 ]
+
+
+_NUMPY_DTYPES = {
+    ParquetType.INT32: np.dtype("<i4"),
+    ParquetType.INT64: np.dtype("<i8"),
+    ParquetType.FLOAT: np.dtype("<f4"),
+    ParquetType.DOUBLE: np.dtype("<f8"),
+}
 
 
 def to_tensor(a: np.ndarray, device, rows=None, dtype=None) -> torch.Tensor:
@@ -46,6 +61,10 @@ class DecodeBatch:
         return int(self.dims["n_pages"])
 
     @property
+    def type(self) -> ParquetType:
+        return ParquetType(self.dims["type"])
+
+    @property
     def max_def(self) -> int:
         return int(self.dims["max_def"])
 
@@ -56,6 +75,41 @@ class DecodeBatch:
     @property
     def nn_cap(self) -> int:
         return int(self.dims["nn_cap"])
+
+    @property
+    def total_rows(self) -> int:
+        return int(self.arrays["page_num_values"].sum())
+
+    @property
+    def value_dtype(self) -> np.dtype | None:
+        return _NUMPY_DTYPES.get(self.type)
+
+    @cached_property
+    def mode(self) -> str:
+        """Static decode specialization: 'plain' | 'dict' | 'mixed'."""
+        kinds = np.unique(self.arrays["page_kind"])
+        if kinds.size <= 1:
+            return "dict" if (kinds.size and kinds[0] == 1) else "plain"
+        return "mixed"
+
+    @cached_property
+    def plain_planes(self) -> list[np.ndarray]:
+        w = int(self.dims["plain_w"])
+        if w == 0 or "plain_fixed" not in self.arrays:
+            return []
+        return _decode.fixed_planes_from_bytes(self.arrays["plain_fixed"], w)
+
+    @cached_property
+    def dict_planes(self) -> list[np.ndarray]:
+        if "dict_fixed" not in self.arrays:
+            return []
+        w = self.arrays["dict_fixed"].shape[1]
+        return _decode.dict_planes_from_bytes(self.arrays["dict_fixed"],
+                                              int(w))
+
+    @property
+    def bool_bits(self) -> np.ndarray | None:
+        return self.arrays.get("bool_bits")
 
     def slice_pages(self, lo: int, hi: int) -> "DecodeBatch":
         """A view batch over pages [lo, hi) (string globals kept whole)."""

@@ -1,57 +1,449 @@
-"""ParquetReader — a thin host reader over the native library.
+"""ParquetReader — the engine's host-side file API.
 
-JAX-free counterpart of the parts of `duckdb_parquet_parser_tpu.host.
-reader.ParquetReader` the scan needs (`__init__`, `open`, `find_column`,
-`column`, `prescan`): the reference module imports its JAX decode at
-import time.  Everything here goes through the port's own native layer
-(`host/bindings.py`: open, metadata, structural prescan).
+The port's own copy of `duckdb_parquet_parser_tpu/host/reader.py`: schema
+inspection, statistics, decoded column reads (flat, LIST, STRUCT, MAP and
+arbitrary nesting), row-range reads, the raw global-page API, `PageIterator`
+and the streaming `StringColumnIterator`, over the port's native layer
+(`host/bindings.py`).  The order of decode routes is the reference's: the
+native `PS_COLUMN` sweep first, the vectorized `_materialize_*` helpers when
+it declines.  Where the reference runs its xp-generic decode with numpy,
+this module runs the port's tensor decode (ops/decode.py) on the CPU;
+`_materialize_fixed(batch, device=...)` runs it on any device.  The
+reference's `engine="auto"` and its `DEVICE_DECODE_MIN_ROWS` threshold chose
+between numpy and its jit kernels by dispatch cost, with identical outputs;
+here the caller names the device.
 """
 
 from __future__ import annotations
 
-from ..utils.config import get_config
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
+
 from . import bindings
-from .batch import DecodeBatch
+from .batch import _NUMPY_DTYPES, DecodeBatch
 from .schema import (
     ColumnInfo,
     ConvertedType,
     FieldRepetitionType,
+    PageIndexEntry,
+    PageType,
     ParquetType,
+    RawPage,
 )
+from ..ops import decode as _decode
+
+
+def _decode_stat_value(raw: bytes, t: ParquetType):
+    """Statistics/ColumnIndex value bytes -> typed Python value."""
+    try:
+        if t == ParquetType.BOOLEAN:
+            return bool(raw[0]) if raw else None
+        if t == ParquetType.INT32:
+            return int.from_bytes(raw[:4], "little", signed=True)
+        if t == ParquetType.INT64:
+            return int.from_bytes(raw[:8], "little", signed=True)
+        if t == ParquetType.FLOAT:
+            return float(np.frombuffer(raw[:4], "<f4")[0])
+        if t == ParquetType.DOUBLE:
+            return float(np.frombuffer(raw[:8], "<f8")[0])
+    except (IndexError, ValueError):
+        return None
+    return raw  # BYTE_ARRAY / FLBA / INT96: raw bytes
+
+
+@dataclass
+class PageStats:
+    """Per-data-page Page Index stats for one column (engine extension —
+    the reference never reads the ColumnIndex/OffsetIndex region; chunk
+    parse: reference src/reader/metadata.cpp:68-86).
+
+    Arrays are aligned with each other and with global page ids.  `mins` /
+    `maxs` hold typed values (None where stats are absent or the page is
+    all-null); per the format spec a stored min is a LOWER bound and a
+    stored max an UPPER bound of the true page extremes (writers may
+    truncate), so pruning on them is sound.
+    """
+
+    gid: np.ndarray          # [n] i64 global page ids
+    row_start: np.ndarray    # [n] i64 first row (engine page index)
+    has_stats: np.ndarray    # [n] u8: chunk had a ColumnIndex
+    null_page: np.ndarray    # [n] u8: page is entirely null
+    null_count: np.ndarray   # [n] i64, -1 when absent
+    mins: list               # [n] typed lower bounds (None when absent)
+    maxs: list               # [n] typed upper bounds (None when absent)
+    oi_offset: np.ndarray    # [n] i64 OffsetIndex page offset, -1 absent
+    oi_csize: np.ndarray     # [n] i64 OffsetIndex compressed size, -1 absent
+    oi_first_row: np.ndarray  # [n] i64 OffsetIndex first_row_index, -1 absent
+
+    def __len__(self) -> int:
+        return len(self.gid)
+
+    def prune(self, op: str, value, hi=None) -> np.ndarray:
+        """Global page ids that CANNOT contain a value satisfying the
+        predicate — the stats analog of the regex scan's "pages with no
+        matching values" report.  `op` is one of '==', '<', '<=', '>',
+        '>=', 'between' (inclusive; pass `hi`), or 'prefix' (BYTE_ARRAY:
+        value starts with the given bytes — the op the cold scan's
+        anchored-pattern pruning uses, see ColdPattern.prune_prefix).
+        Pages without stats are never pruned; all-null pages always are."""
+        if op == "prefix":
+            # values with prefix P are exactly [P, next_prefix(P)); an
+            # all-0xFF prefix has no finite successor (upper test disabled)
+            if not isinstance(value, (bytes, bytearray)):
+                raise TypeError("prefix pruning requires a bytes prefix")
+            lo_v = bytes(value)
+            q = bytearray(lo_v)
+            while q and q[-1] == 0xFF:
+                q.pop()
+            if q:
+                q[-1] += 1
+                hi_v = bytes(q)
+            else:
+                hi_v = None
+        elif op == "between":
+            if hi is None:
+                raise ValueError("between requires hi")
+            lo_v, hi_v = value, hi
+        elif op in ("==", "<", "<=", ">", ">="):
+            lo_v = hi_v = value
+        else:
+            raise ValueError(f"unknown op {op!r}")
+        out = []
+        for i in range(len(self.gid)):
+            if not self.has_stats[i]:
+                continue
+            if self.null_page[i]:
+                out.append(int(self.gid[i]))
+                continue
+            mn, mx = self.mins[i], self.maxs[i]
+            if mn is None or mx is None:
+                continue
+            if op == "prefix":
+                dead = mx < lo_v or (hi_v is not None and mn >= hi_v)
+            elif op == "==" or op == "between":
+                dead = mx < lo_v or mn > hi_v
+            elif op == ">":
+                dead = mx <= lo_v
+            elif op == ">=":
+                dead = mx < lo_v
+            elif op == "<":
+                dead = mn >= lo_v
+            else:  # '<='
+                dead = mn > lo_v
+            if dead:
+                out.append(int(self.gid[i]))
+        return np.asarray(out, np.int64)
+
+
+class StringValues:
+    """Columnar BYTE_ARRAY values: per-row (offset, length, source buffer)
+    with `bytes` objects materialized only on access — the decode itself is
+    loop-free (the round-1 list-of-bytes materialization walked 2M values in
+    Python).  Behaves like a list of `bytes | None`: indexing, slicing,
+    iteration, len."""
+
+    __slots__ = ("_offs", "_lens", "_src", "_bufs")
+
+    def __init__(self, offs, lens, src, bufs):
+        self._offs = offs    # [n] i64 (into bufs[src])
+        self._lens = lens    # [n] i32, -1 = NULL
+        self._src = src      # [n] u8 buffer selector
+        self._bufs = bufs    # tuple of u8 arrays
+
+    def __len__(self) -> int:
+        return len(self._lens)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return StringValues(
+                self._offs[i], self._lens[i], self._src[i], self._bufs
+            )
+        ln = int(self._lens[i])
+        if ln < 0:
+            return None
+        off = int(self._offs[i])
+        return self._bufs[int(self._src[i])][off : off + ln].tobytes()
+
+    def __iter__(self) -> Iterator:
+        for i in range(len(self)):
+            yield self[i]
+
+    def __eq__(self, other):
+        if isinstance(other, (list, tuple)):
+            return list(self) == list(other)
+        return NotImplemented
+
+
+@dataclass
+class DecodedColumn:
+    """A decoded column: values + validity (SoA, never array-of-Value).
+
+    `values` is a typed numpy array for fixed-width columns and a
+    list-of-bytes-like `StringValues` for BYTE_ARRAY; `valid[i]` False means
+    NULL (the reference models this as Value::null(), reference
+    include/common.hpp:177-201).
+    """
+
+    type: ParquetType
+    values: object
+    valid: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.valid)
+
+    def to_pylist(self) -> list:
+        out = []
+        for i, ok in enumerate(self.valid):
+            if not ok:
+                out.append(None)
+            else:
+                v = self.values[i]
+                out.append(v.item() if isinstance(v, np.generic) else v)
+        return out
+
+    def to_arrow(self):
+        """pyarrow.Array bridge (interop convenience; pyarrow required at
+        call time only).  Fixed-width columns go zero-copy-ish from their
+        numpy planes with the validity as the null mask; BYTE_ARRAY and
+        INT96 fall back to the python values (binary / 12-byte blobs)."""
+        import pyarrow as pa
+
+        mask = ~np.asarray(self.valid, bool)
+        if isinstance(self.values, np.ndarray) and self.values.dtype != object:
+            return pa.array(self.values, mask=mask)
+        return pa.array(self.to_pylist(), type=pa.binary())
+
+    def to_strings(self) -> list[str]:
+        """Reference `Value::to_string()` formatting, for oracle diffs
+        (NULL, true/false, repr of ints, %f floats, raw strings)."""
+        out = []
+        for i, ok in enumerate(self.valid):
+            if not ok:
+                out.append("NULL")
+                continue
+            v = self.values[i]
+            if self.type == ParquetType.BOOLEAN:
+                out.append("true" if v else "false")
+            elif self.type in (ParquetType.FLOAT, ParquetType.DOUBLE):
+                out.append("%.6f" % float(v))
+            elif self.type in (ParquetType.BYTE_ARRAY,
+                               ParquetType.FIXED_LEN_BYTE_ARRAY):
+                out.append(v.decode("utf-8", "surrogateescape"))
+            elif self.type == ParquetType.INT96:
+                lo = int(np.frombuffer(v[:8], "<i8")[0])
+                hi = int(np.frombuffer(v[8:], "<i4")[0])
+                out.append(f"INT96({hi}:{lo})")
+            else:
+                out.append(str(int(v)))
+        return out
+
+
+@dataclass
+class ListColumn:
+    """A reconstructed single-level LIST column (SoA, offsets-based).
+
+    Row r spans elements [offsets[r], offsets[r+1]); list_valid[r] False
+    means the LIST itself is NULL (empty lists are valid rows with zero
+    span).  Elements index lazily into the flat leaf column through
+    `elem_slots` (no per-value copies)."""
+
+    type: ParquetType
+    offsets: np.ndarray      # [rows + 1] element offsets
+    list_valid: np.ndarray   # [rows] bool
+    elem_valid: np.ndarray   # [total_elements] bool (element-level nulls)
+    elem_slots: np.ndarray   # [total_elements] index into the leaf column
+    leaf: DecodedColumn
+
+    def __len__(self) -> int:
+        return len(self.list_valid)
+
+    def row(self, r: int):
+        if not self.list_valid[r]:
+            return None
+        out = []
+        for j in range(int(self.offsets[r]), int(self.offsets[r + 1])):
+            if not self.elem_valid[j]:
+                out.append(None)
+                continue
+            v = self.leaf.values[int(self.elem_slots[j])]
+            out.append(v.item() if isinstance(v, np.generic) else v)
+        return out
+
+    def to_pylist(self) -> list:
+        return [self.row(r) for r in range(len(self))]
+
+
+@dataclass
+class StructColumn:
+    """A reconstructed (non-repeated) STRUCT group: one dict per file row,
+    None where the struct (or an ancestor) is NULL, nested dicts for
+    structs inside structs."""
+
+    fields: list          # leaf paths relative to the struct prefix
+    rows: list
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def to_pylist(self) -> list:
+        return self.rows
+
+
+@dataclass
+class NestedColumn:
+    """A reconstructed multi-level LIST column (max_rep > 1): eagerly
+    assembled nested python lists — the generality path; single-level
+    lists get the SoA ListColumn instead."""
+
+    type: ParquetType
+    rows: list
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def to_pylist(self) -> list:
+        return self.rows
+
+
+def _assemble_nested(ptype, defs, reps, col, def_nodes, max_def):
+    """Generic Dremel record assembly for one leaf (any list depth).
+
+    `def_nodes` is the leaf's ordered def-contributing ancestor profile
+    [(def threshold, kind, path depth)], kind 0 = OPTIONAL / 1 = REPEATED.
+    Per slot (rep r, def d): levels <= r stay open, levels r+1..k(d) open
+    fresh (k(d) = number of repeated thresholds <= d); then the terminal
+    lands at level k(d) — the leaf value when d == max_def, otherwise []
+    when the first undefined node (threshold d+1) is repeated (an empty
+    deeper list) or None when it is optional (a null branch)."""
+    import bisect
+
+    rep_thresholds = [t for t, k, _d in def_nodes if k == 1]
+    kind_at = {t: k for t, k, _d in def_nodes}
+    valid = np.asarray(col.valid)
+    rows: list = []
+    stack: list = []  # open lists; stack[k-1] = list at level k
+
+    for i in range(len(defs)):
+        d, r = int(defs[i]), int(reps[i])
+        k_exists = bisect.bisect_right(rep_thresholds, d)
+        if r == 0:
+            stack = []
+            rows.append(None)  # placeholder; terminal below may replace it
+        else:
+            del stack[r:]
+        while len(stack) < k_exists:
+            new: list = []
+            if stack:
+                stack[-1].append(new)
+            else:
+                rows[-1] = new
+            stack.append(new)
+
+        if d == max_def:
+            v = col.values[i] if valid[i] else None
+            if v is not None and isinstance(v, np.generic):
+                v = v.item()
+            stack[-1].append(v)
+        else:
+            terminal = [] if kind_at[d + 1] == 1 else None
+            if k_exists == 0:
+                rows[-1] = terminal
+            else:
+                stack[k_exists - 1].append(terminal)
+    return NestedColumn(type=ptype, rows=rows)
+
+
+@dataclass
+class PageResult:
+    """Per-page decode result (parity: reference PageResult,
+    include/reader/column_reader.hpp)."""
+
+    page_num: int
+    type: PageType
+    num_values: int
+    values: DecodedColumn | None  # None for dictionary pages
 
 
 class ParquetReader:
-    """Opens a Parquet file and serves its schema and prescan batches."""
+    """Opens a Parquet file (UNCOMPRESSED or Snappy — the reference rejects
+    everything but UNCOMPRESSED) and serves schema, pages, decoded
+    columns, and device decode batches."""
 
-    def __init__(self, path: str):
-        self.handle = None
-        self.path = str(path)
+    def __init__(self, path: str | None = None):
+        self._h = None
+        self._path: str | None = None
+        self._meta = None
+        self._columns: list[ColumnInfo] = []
+        self._by_name: dict[str, int] = {}
+        self._pages_cache: dict[str, np.ndarray] | None = None
+        self._data_page_rows_cache: np.ndarray | None = None
+        if path is not None:
+            if not self.open(path):
+                raise IOError(f"cannot open parquet file: {path}")
+
+    # ── lifecycle ───────────────────────────────────────────────────────────
+
+    def open(self, path: str) -> bool:
         try:
-            self.handle = bindings.native_open(self.path)
-        except bindings.NativeError as e:
-            raise IOError(f"cannot open parquet file: {path}: {e}") from e
-        self._meta = bindings.native_meta(self.handle)
-        self._columns = [
-            ColumnInfo(
-                name=c["name"],
-                type=ParquetType(c["type"]),
-                column_index=c["chunk_idx"],
-                max_def_level=c["max_def"],
-                max_rep_level=c["max_rep"],
-                repetition=(FieldRepetitionType(c["repetition"])
-                            if "repetition" in c else None),
-                converted_type=(ConvertedType(c["converted"])
-                                if "converted" in c else None),
-                type_length=c.get("type_length"),
+            self._h = bindings.native_open(str(path))
+        except bindings.NativeError:
+            return False
+        self._path = str(path)
+        self._meta = bindings.native_meta(self._h)
+        self._tree = None
+        self._columns = []
+        for c in self._meta["columns"]:
+            self._columns.append(
+                ColumnInfo(
+                    name=c["name"],
+                    type=ParquetType(c["type"]),
+                    column_index=c["chunk_idx"],
+                    max_def_level=c["max_def"],
+                    max_rep_level=c["max_rep"],
+                    repetition=(
+                        FieldRepetitionType(c["repetition"]) if "repetition" in c else None
+                    ),
+                    converted_type=(
+                        ConvertedType(c["converted"]) if "converted" in c else None
+                    ),
+                    type_length=c.get("type_length"),
+                )
             )
-            for c in self._meta["columns"]
-        ]
         self._by_name = {c.name: i for i, c in enumerate(self._columns)}
+        # page table stays LAZY (native side walks headers on first demand):
+        # a cold one-shot scan never touches it — see the _pages property
+        return True
+
+    @property
+    def _pages(self) -> dict[str, np.ndarray]:
+        """Global page table (lazy: first access triggers the native header
+        walk; the cold one-shot scan path never needs it)."""
+        if self._pages_cache is None:
+            self._pages_cache = bindings.native_page_table(self._h)
+        return self._pages_cache
+
+    @property
+    def _data_page_rows(self) -> np.ndarray:
+        if self._data_page_rows_cache is None:
+            gids = self._pages["gid"]
+            order = np.argsort(gids[gids >= 0])
+            self._data_page_rows_cache = np.nonzero(gids >= 0)[0][order]
+        return self._data_page_rows_cache
+
+    def _file_view(self) -> np.ndarray | None:
+        """Read-only numpy view over the whole mmap'd file (zero copy);
+        valid while the reader is open."""
+        if getattr(self, "_file_view_cache", None) is None:
+            self._file_view_cache = bindings.native_file_view(self._h)
+        return self._file_view_cache
 
     def close(self) -> None:
-        if self.handle is not None:
-            bindings.lib().dpq_close(self.handle)
-            self.handle = None
+        self._file_view_cache = None
+        if self._h is not None:
+            bindings.lib().dpq_close(self._h)
+            self._h = None
 
     def __enter__(self):
         return self
@@ -59,18 +451,44 @@ class ParquetReader:
     def __exit__(self, *exc):
         self.close()
 
+    # ── schema inspection ───────────────────────────────────────────────────
+
+    def num_columns(self) -> int:
+        return len(self._columns)
+
     def num_rows(self) -> int:
         return int(self._meta["num_rows"])
 
+    def num_row_groups(self) -> int:
+        return len(self._meta["row_groups"])
+
+    def column_names(self) -> list[str]:
+        return [c.name for c in self._columns]
+
+    def column(self, key) -> ColumnInfo:
+        if isinstance(key, str):
+            idx = self.find_column(key)
+            if idx < 0:
+                raise KeyError(f"Column not found: {key}")
+            return self._columns[idx]
+        if key < 0 or key >= len(self._columns):
+            raise IndexError(f"Column index {key} out of range")
+        return self._columns[key]
+
     def find_column(self, name: str) -> int:
-        """Leaf index by name, then by dotted schema path, then by a unique
-        run of path segments (the reference reader's rules); -1 if none."""
+        """Leaf lookup by name (reference semantics), falling back to the
+        dotted schema path and then to a unique path SUFFIX — nested leaf
+        names repeat across lists ('element'), so 'l.list.element' or just
+        'l' (when unambiguous) resolves the leaf under list column l."""
         idx = self._by_name.get(name, -1)
         if idx >= 0:
             return idx
         cols = self._meta["columns"]
         hits = [i for i, c in enumerate(cols) if c.get("path") == name]
         if not hits:
+            # exact path-SEGMENT run match only (never raw substring), so a
+            # mistyped top-level name cannot silently resolve to an
+            # unrelated nested leaf
             want = name.split(".")
             w = len(want)
 
@@ -83,25 +501,859 @@ class ParquetReader:
                     if (p := c.get("path", "")) and seg_hit(p)]
         return hits[0] if len(hits) == 1 else -1
 
-    def column(self, key) -> ColumnInfo:
-        if isinstance(key, str):
-            idx = self.find_column(key)
-            if idx < 0:
-                raise KeyError(f"Column not found: {key}")
-            return self._columns[idx]
-        if key < 0 or key >= len(self._columns):
-            raise IndexError(f"Column index {key} out of range")
-        return self._columns[key]
+    def schema_string(self) -> str:
+        # Byte-identical to the reference's schema_string()
+        # (reference: src/reader/parquet_reader.cpp:99-121).
+        lines = ["Schema:\n"]
+        for i, c in enumerate(self._columns):
+            s = f"  {i}: {c.name} ({c.type_name()}"
+            if c.converted_type is not None and c.converted_type != ConvertedType.NONE:
+                s += f", converted={c.converted_type_string()}"
+            if c.repetition is not None:
+                s += ", " + c.repetition.name
+            lines.append(s + ")\n")
+        lines.append(f"Rows: {self.num_rows()}\n")
+        lines.append(f"Row groups: {self.num_row_groups()}\n")
+        return "".join(lines)
 
-    def prescan(self, column: str | int, rg0: int = 0, rg1: int = -1,
-                pad_strings: int = 0, flags: int = bindings.PS_PAYLOAD,
-                payload_align: int = 0) -> DecodeBatch:
-        """The native structural prescan of one column over row groups
-        [rg0, rg1) (-1: to the end)."""
+    # ── accessors ───────────────────────────────────────────────────────────
+
+    def metadata(self) -> dict:
+        return self._meta
+
+    def columns(self) -> list[ColumnInfo]:
+        return self._columns
+
+    def file_size(self) -> int:
+        return int(self._meta["file_size"])
+
+    def column_stats(self, column: str | int) -> list[dict]:
+        """Per-row-group column-chunk Statistics, decoded to typed values.
+
+        Engine extension: the reference parses the Statistics struct only to
+        discard it (reference: src/reader/metadata.cpp:26-32).  Returns one
+        dict per row group — empty when the writer emitted no stats —
+        with any of `min` / `max` (typed: int/float/bool/bytes), `null_count`
+        and `distinct_count`.  The logical-order min_value/max_value fields
+        are preferred over the deprecated physical-order min/max pair.
+        """
+        idx = self.find_column(column) if isinstance(column, str) else column
+        if idx < 0 or idx >= len(self._columns):
+            raise KeyError(f"Column not found: {column}")
+        info = self._columns[idx]
+        chunk_idx = info.column_index
+
+        def typed(hexv: str):
+            return _decode_stat_value(bytes.fromhex(hexv), info.type)
+
+        out = []
+        for rg in self._meta["row_groups"]:
+            cols = rg["columns"]
+            s = (cols[chunk_idx].get("stats")
+                 if chunk_idx < len(cols) else None)
+            if not s:
+                out.append({})
+                continue
+            d = {}
+            for key in ("null_count", "distinct_count"):
+                if key in s:
+                    d[key] = int(s[key])
+            mn = s.get("min_value", s.get("min"))
+            mx = s.get("max_value", s.get("max"))
+            if mn is not None:
+                d["min"] = typed(mn)
+            if mx is not None:
+                d["max"] = typed(mx)
+            out.append(d)
+        return out
+
+    def page_stats(self, column: str | int) -> PageStats:
+        """Page Index (ColumnIndex/OffsetIndex) stats per data page, typed
+        and aligned with global page ids — see PageStats.  Engine extension:
+        the reference never reads the page-index region."""
+        idx = self.find_column(column) if isinstance(column, str) else column
+        if idx < 0 or idx >= len(self._columns):
+            raise KeyError(f"Column not found: {column}")
+        info = self._columns[idx]
+        dims, a = bindings.native_page_stats(self._h, idx)
+        n = int(dims["n_pages"])
+        mins: list = [None] * n
+        maxs: list = [None] * n
+        mo, xo = a["min_offs"], a["max_offs"]
+        mc = a["min_chars"].tobytes()[: int(dims["min_chars_len"])]
+        xc = a["max_chars"].tobytes()[: int(dims["max_chars_len"])]
+        has, np_ = a["has_stats"], a["null_page"]
+        for i in range(n):
+            if not has[i] or np_[i]:
+                continue
+            mins[i] = _decode_stat_value(mc[int(mo[i]):int(mo[i + 1])],
+                                         info.type)
+            maxs[i] = _decode_stat_value(xc[int(xo[i]):int(xo[i + 1])],
+                                         info.type)
+        return PageStats(
+            gid=a["gid"], row_start=a["row_start"], has_stats=has,
+            null_page=np_, null_count=a["null_count"], mins=mins, maxs=maxs,
+            oi_offset=a["oi_offset"], oi_csize=a["oi_csize"],
+            oi_first_row=a["oi_first_row"],
+        )
+
+    def read_range(self, offset: int, length: int) -> bytes:
+        return bindings.native_read_range(self._h, offset, length).tobytes()
+
+    # ── device batches ──────────────────────────────────────────────────────
+
+    def prescan(
+        self,
+        column: str | int,
+        rg0: int = 0,
+        rg1: int = -1,
+        align: int | None = None,
+        pad_strings: int = 0,
+        flags: int = bindings.PS_HOST_STRINGS,
+        payload_align: int = 0,
+        row_lo: int = -1,
+        row_hi: int = -1,
+    ) -> DecodeBatch:
         idx = self.find_column(column) if isinstance(column, str) else column
         if idx < 0:
             raise KeyError(f"Column not found: {column}")
+        if align is None:
+            from ..utils.config import get_config
+
+            align = get_config().batch_align
         dims, arrays = bindings.native_prescan(
-            self.handle, idx, rg0, rg1, get_config().batch_align,
-            pad_strings, flags, payload_align)
+            self._h, idx, rg0, rg1, align, pad_strings, flags, payload_align,
+            row_lo, row_hi
+        )
         return DecodeBatch(dims, arrays)
+
+    # ── decoded column reads ────────────────────────────────────────────────
+
+    def read_list_column(self, name: str) -> "ListColumn":
+        """Reconstruct a single-level LIST column (max_rep == 1) from its
+        repetition/definition levels — Dremel record assembly, offsets-only.
+
+        One entry per FILE ROW: None for a null list, [] for an empty list,
+        else the element values (None where an element is null).  The
+        reference cannot read nested files at all (docs/reference_bugs.md
+        #5 — its level-section order garbles them); the flat leaf stream
+        stays available via read_column().  Deeper nesting (max_rep > 1)
+        assembles generically (eager nested pylists, `NestedColumn`) from
+        the leaf's def-node profile.  Accepts a leaf name or a column
+        index (leaf names like 'element' may repeat across lists)."""
+        idx = self.find_column(name) if isinstance(name, str) else int(name)
+        if idx < 0 or idx >= len(self._columns):
+            raise KeyError(f"Column not found: {name}")
+        info = self._columns[idx]
+        if info.max_rep_level == 0:
+            raise TypeError(f"'{name}' is not a repeated (LIST) column")
+        col, _d0 = self._list_with_rowdefs(idx)
+        return col
+
+    def _list_with_rowdefs(self, idx: int):
+        """List reconstruction plus each row's FIRST-SLOT def level —
+        struct assembly (read_struct_column) needs d0 to tell a null
+        struct ancestor from a null/empty list."""
+        info = self._columns[idx]
+        rep_def = int(self._meta["columns"][idx]["rep_def"])
+        batch, col = self._decode_leaf(idx,
+                                       extra_flags=bindings.PS_REP_LEVELS)
+
+        arrays = batch.arrays
+        nv = arrays["page_num_values"]
+        live = np.arange(batch.vmax, dtype=np.int32)[None, :] < nv[:, None]
+        defs = arrays["def_levels"][live].astype(np.int32)
+        reps = arrays["rep_levels"][live].astype(np.int32)
+        d0 = defs[reps == 0]             # first-slot def per row
+
+        if info.max_rep_level > 1:
+            def_nodes = self._meta["columns"][idx]["def_nodes"]
+            return _assemble_nested(info.type, defs, reps, col, def_nodes,
+                                    info.max_def_level), d0
+
+        starts = reps == 0               # each row's first leaf slot
+        row_id = np.cumsum(starts) - 1
+        n_rows = int(row_id[-1]) + 1 if len(row_id) else 0
+        elem = defs >= rep_def           # slots carrying an element
+        counts = np.bincount(row_id[elem], minlength=n_rows)
+        offsets = np.zeros(n_rows + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        list_valid = d0 >= rep_def - 1   # < rep_def-1: an ancestor is NULL
+        (elem_slots,) = np.nonzero(elem)
+        return ListColumn(
+            type=info.type,
+            offsets=offsets,
+            list_valid=list_valid,
+            elem_valid=np.asarray(col.valid)[elem_slots],
+            elem_slots=elem_slots,
+            leaf=col,
+        ), d0
+
+    def _decode_leaf(self, col_idx: int, rg0: int = 0, rg1: int = -1, *,
+                     row_lo: int = -1, row_hi: int = -1, extra_flags: int = 0):
+        """One prescan + materialization of a leaf column — the shared
+        decode chain behind read_column / read_rows / read_list_column.
+
+        Fused native materialization first: the pre-scan's pack pass emits
+        the final per-row column arrays (values/validity) in one cache-hot
+        C++ sweep (PS_COLUMN); the vectorized numpy paths remain as the
+        golden model and the fallback when the native fast path declines
+        (e.g. string views unavailable).  Returns (batch, DecodedColumn).
+
+        Everything here runs on the host: when the native wrap declines,
+        fixed-width pages decode through `_materialize_fixed(batch,
+        device="cpu")`.  A caller that wants the decode on a card calls
+        `_materialize_fixed(reader.prescan(column), device=...)` (or
+        `ops.decode.decode_fixed_device` on uploaded tensors) itself."""
+        info = self._columns[col_idx]
+        # lean mode: when the caller needs only the decoded column (no level
+        # planes, no per-value string tables), suppress everything but the
+        # PS_COLUMN arrays; the full prescan is re-run if the native wrap
+        # declines (rare: mmap unavailable) so the fallbacks keep their
+        # inputs
+        lean = bindings.PS_RUNS_ONLY | bindings.PS_COL_ONLY \
+            if extra_flags == 0 else 0
+        if info.type == ParquetType.BYTE_ARRAY:
+            base_flags = (bindings.PS_HOST_STRINGS | bindings.PS_STR_VIEWS
+                          | bindings.PS_COLUMN | extra_flags)
+            batch = self.prescan(col_idx, rg0, rg1, flags=base_flags | lean,
+                                 row_lo=row_lo, row_hi=row_hi)
+            col = _wrap_native_column(batch, info.type, self._file_view())
+            if col is None:
+                if lean:
+                    batch = self.prescan(col_idx, rg0, rg1, flags=base_flags,
+                                         row_lo=row_lo, row_hi=row_hi)
+                col = _materialize_strings(batch, file_chars=self._file_view())
+            return batch, col
+        batch = self.prescan(col_idx, rg0, rg1,
+                             flags=bindings.PS_COLUMN | extra_flags | lean,
+                             row_lo=row_lo, row_hi=row_hi)
+        col = _wrap_native_column(batch, info.type, None)
+        if col is None:
+            if lean:
+                batch = self.prescan(col_idx, rg0, rg1,
+                                     flags=bindings.PS_COLUMN | extra_flags,
+                                     row_lo=row_lo, row_hi=row_hi)
+            col = (_materialize_flba(batch)
+                   if info.type == ParquetType.FIXED_LEN_BYTE_ARRAY
+                   else _materialize_fixed(batch, device="cpu"))
+        return batch, col
+
+    def _schema_tree(self):
+        """The full schema tree with Dremel levels (cached per open)."""
+        from . import assembly
+
+        if getattr(self, "_tree", None) is None:
+            self._tree = assembly.build_tree(self._meta["schema"])
+        return self._tree
+
+    def assemble_field(self, prefix: str) -> list:
+        """Generic Dremel record assembly of the subtree at dotted path
+        `prefix` — works for ANY shape (list<struct>, structs in lists,
+        maps with nested values, arbitrary trees), matching pyarrow
+        to_pylist semantics.  Returns one python value per file row.
+
+        The reference cannot read nested files (docs/reference_bugs.md #5);
+        this generalizes the def/rep walk of reference
+        src/reader/parquet_reader.cpp:495-557 to full reconstruction."""
+        from . import assembly
+
+        node = assembly.find_node(self._schema_tree(), prefix)
+        if node is None:
+            raise KeyError(f"No schema node at path: {prefix}")
+        cols_meta = self._meta["columns"]
+        leaf_rows: dict[int, list] = {}
+        for idx in node.leaves():
+            cmeta = cols_meta[idx]
+            batch, col = self._decode_leaf(
+                idx, extra_flags=bindings.PS_REP_LEVELS)
+            arrays = batch.arrays
+            nv = arrays["page_num_values"]
+            live = (np.arange(batch.vmax, dtype=np.int32)[None, :]
+                    < nv[:, None])
+            if "def_levels" in arrays:
+                defs = arrays["def_levels"][live].astype(np.int32)
+            else:
+                defs = np.full(int(nv.sum()), int(cmeta["max_def"]), np.int32)
+            if "rep_levels" in arrays and cmeta["max_rep"] > 0:
+                reps = arrays["rep_levels"][live].astype(np.int32)
+            else:
+                reps = np.zeros(len(defs), np.int32)
+            rep_ths = [t for t, k, _d in cmeta["def_nodes"] if k == 1]
+            leaf_rows[idx] = assembly._assemble_leaf_marked(
+                defs, reps, col.values, np.asarray(col.valid), rep_ths)
+        return assembly.merge_rows(node, leaf_rows)
+
+    def read_table(self, columns: list[str] | None = None) -> dict:
+        """Read every top-level column (or the named subset) with the
+        appropriate reconstruction: flat leaves via read_column, simple
+        LIST columns via the SoA read_list_column, everything else
+        (structs, maps, list<struct>, arbitrary nesting) via the generic
+        Dremel assembler.  Returns {field name: column object}; every
+        value supports len() and to_pylist()."""
+        from . import assembly as _asm
+
+        cols_meta = self._meta["columns"]
+        tree = self._schema_tree()
+        by_field: dict[str, list[int]] = {}
+        for i, c in enumerate(cols_meta):
+            field = c.get("path", c["name"]).split(".")[0]
+            by_field.setdefault(field, []).append(i)
+        if columns is not None:
+            missing = [f for f in columns if f not in by_field]
+            if missing:
+                raise KeyError(f"Columns not found: {missing}")
+            by_field = {f: by_field[f] for f in columns}
+
+        def _plain_list(node) -> bool:
+            """LIST whose element is a bare leaf (no struct wrapper) — the
+            SoA read_list_column fast path preserves pyarrow shapes only
+            then; list<struct<single-field>> must assemble generically."""
+            if node is None:
+                return True  # legacy file without schema tree: leaf path
+            if node.is_leaf:
+                return True  # legacy repeated leaf
+            if node.converted != _asm._CONV_LIST or len(node.children) != 1:
+                return False
+            cur = node.children[0]  # repeated wrapper ('list')
+            while not cur.is_leaf and len(cur.children) == 1 \
+                    and cur.repetition == _asm.REPEATED:
+                cur = cur.children[0]
+            # unwrap chained list-of-list annotations down to the element
+            while not cur.is_leaf and cur.converted == _asm._CONV_LIST \
+                    and len(cur.children) == 1:
+                cur = cur.children[0]
+                while not cur.is_leaf and len(cur.children) == 1 \
+                        and cur.repetition == _asm.REPEATED:
+                    cur = cur.children[0]
+            return cur.is_leaf
+
+        out: dict = {}
+        for field, leaves in by_field.items():
+            node = next((c for c in tree.children if c.name == field), None)
+            c0 = cols_meta[leaves[0]]
+            if node is not None and node.is_leaf \
+                    and node.repetition != _asm.REPEATED:
+                out[field] = self.read_column_by_idx(-1, leaves[0])
+            elif len(leaves) == 1 and c0["max_rep"] >= 1 \
+                    and _plain_list(node):
+                out[field] = self.read_list_column(leaves[0])
+            else:
+                out[field] = NestedColumn(
+                    type=self._columns[leaves[0]].type,
+                    rows=self.assemble_field(field),
+                )
+        return out
+
+    def read_struct_column(self, prefix: str) -> "StructColumn":
+        """Assemble a STRUCT group's leaves into per-row dicts via the
+        generic Dremel assembler (host/assembly.py).  `prefix` is the
+        struct's dotted schema path; rows where the struct (or an optional
+        ancestor) is NULL become None, structs inside structs become
+        nested dicts, LIST members reconstruct in place, MAP members
+        become entry-tuple lists — pyarrow to_pylist shapes throughout,
+        including repeated groups with multiple leaves (list<struct>)."""
+        from . import assembly as _asm
+
+        node = _asm.find_node(self._schema_tree(), prefix)
+        if node is None or node.is_leaf:
+            raise KeyError(f"No struct group at path: {prefix}")
+        cols_meta = self._meta["columns"]
+        k = len(prefix.split("."))
+        return StructColumn(
+            fields=[".".join(cols_meta[i]["path"].split(".")[k:])
+                    for i in node.leaves()],
+            rows=self.assemble_field(prefix),
+        )
+
+    def read_map_column(self, prefix: str) -> "NestedColumn":
+        """Assemble a MAP column into per-row entry lists — [(key, value),
+        ...] like pyarrow's to_pylist, None for null maps, [] for empty
+        ones.  `prefix` is the map's dotted schema path.  MAP-annotated
+        groups assemble generically (values may be any nested shape);
+        unannotated legacy key/value shapes are coerced to entry tuples."""
+        from . import assembly as _asm
+
+        node = _asm.find_node(self._schema_tree(), prefix)
+        if node is None or node.is_leaf:
+            raise KeyError(f"No MAP group at path: {prefix}")
+        cols = self._meta["columns"]
+        members = [(i, cols[i]) for i in node.leaves()]
+        keys = [i for i, c in members if c["path"].split(".")[-1] == "key"]
+        annotated = node.converted in (_asm._CONV_MAP, _asm._CONV_MAP_KV)
+        if not annotated and len(keys) != 1:
+            raise KeyError(
+                f"'{prefix}' is not a MAP group (need a MAP annotation or "
+                f"exactly one key leaf; found {len(members)} leaves)"
+            )
+        rows = self.assemble_field(prefix)
+        if not annotated:
+            # legacy shape: repeated group of {key, value} dicts
+            rows = [
+                None if es is None else [
+                    (e["key"], e.get("value", e.get("val")))
+                    if isinstance(e, dict) else e
+                    for e in es
+                ]
+                for es in rows
+            ]
+        vtype = next((self._columns[i].type for i, c in members
+                      if c["path"].split(".")[-1] != "key"),
+                     self._columns[members[0][0]].type)
+        return NestedColumn(type=vtype, rows=rows)
+
+    def read_column(self, name: str, row_group_idx: int | None = None) -> DecodedColumn:
+        """One column, or one row group of it, decoded on the host (the
+        native column sweep, `_decode_leaf`).  The device route is
+        `_materialize_fixed(reader.prescan(name), device=...)`."""
+        idx = self.find_column(name)
+        if idx < 0:
+            raise KeyError(f"Column not found: {name}")
+        if row_group_idx is None:
+            return self.read_column_by_idx(-1, idx)
+        return self.read_column_by_idx(int(row_group_idx), idx)
+
+    def read_column_by_idx(self, row_group_idx: int, col_idx: int) -> DecodedColumn:
+        if col_idx < 0 or col_idx >= len(self._columns):
+            raise IndexError("Invalid column index")
+        n_rg = self.num_row_groups()
+        if row_group_idx >= n_rg:
+            raise IndexError("Invalid row group index")
+        rg0, rg1 = (0, n_rg) if row_group_idx < 0 else (row_group_idx, row_group_idx + 1)
+        _batch, col = self._decode_leaf(col_idx, rg0, rg1)
+        return col
+
+    def read_rows(self, column: str | int, row_lo: int,
+                  row_hi: int) -> DecodedColumn:
+        """Decode only rows [row_lo, row_hi) — page-granular serving read.
+
+        Engine extension: the reference can only decode whole column chunks
+        (reference: src/reader/parquet_reader.cpp:133-165).  The pre-scan
+        restricts itself to the data pages overlapping the row span (via the
+        page index built at open), so a point lookup touches one ~1 KB page
+        instead of the row group.
+        """
+        idx = self.find_column(column) if isinstance(column, str) else column
+        if idx < 0 or idx >= len(self._columns):
+            raise KeyError(f"Column not found: {column}")
+        n = self.num_rows()
+        row_lo = max(0, int(row_lo))
+        row_hi = min(n, int(row_hi))
+        if row_hi <= row_lo:
+            info = self._columns[idx]
+            return DecodedColumn(info.type, np.zeros(0, np.int64),
+                                 np.zeros(0, bool))
+        # row groups overlapping the span (skip whole chunks outright)
+        rg0 = rg1 = 0
+        base = 0
+        for g, rg in enumerate(self._meta["row_groups"]):
+            nr = int(rg["num_rows"])
+            if base + nr <= row_lo:
+                rg0 = g + 1
+            if base < row_hi:
+                rg1 = g + 1
+            base += nr
+        batch, col = self._decode_leaf(idx, rg0, rg1,
+                                       row_lo=row_lo, row_hi=row_hi)
+        # trim the edge pages' surplus rows
+        first = int(batch.arrays["page_row_start"][0])
+        a = row_lo - first
+        b = row_hi - first
+        return DecodedColumn(col.type, col.values[a:b],
+                             np.asarray(col.valid)[a:b])
+
+    def read_pages(self, column: str | int, row_group_idx: int = 0) -> list["PageResult"]:
+        """Per-page decode results for one column chunk (parity: reference
+        ColumnReader::read_pages, src/reader/column_reader.cpp:73-126).
+        Dictionary pages appear with empty values; page numbering is per
+        chunk and counts dictionary pages."""
+        idx = self.find_column(column) if isinstance(column, str) else column
+        if idx < 0:
+            raise KeyError(f"Column not found: {column}")
+        info = self._columns[idx]
+        batch = self.prescan(idx, row_group_idx, row_group_idx + 1)
+        if info.type == ParquetType.BYTE_ARRAY:
+            decoded = _materialize_strings(batch)
+        else:
+            decoded = _materialize_fixed(batch, device="cpu")
+
+        # per-chunk page numbering including the dictionary page
+        sel = (self._pages["rg"] == row_group_idx) & (
+            self._pages["col"] == info.column_index
+        )
+        kinds = self._pages["kind"][sel]
+        nvals = self._pages["num_values"][sel]
+
+        out: list[PageResult] = []
+        at = 0
+        for page_num, (kind, nv) in enumerate(zip(kinds, nvals)):
+            if kind == PageType.DICTIONARY_PAGE:
+                out.append(PageResult(page_num, PageType.DICTIONARY_PAGE, int(nv), None))
+                continue
+            if kind != PageType.DATA_PAGE:
+                continue  # unknown page types consume a page_num, no entry
+            vals = DecodedColumn(
+                decoded.type,
+                decoded.values[at : at + nv],
+                decoded.valid[at : at + nv],
+            )
+            out.append(PageResult(page_num, PageType.DATA_PAGE, int(nv), vals))
+            at += nv
+        return out
+
+    # ── raw page API (global data-page ids) ─────────────────────────────────
+
+    def num_pages(self) -> int:
+        return len(self._data_page_rows)
+
+    def _page_row(self, gid: int) -> int:
+        if gid < 0 or gid >= len(self._data_page_rows):
+            raise IndexError(f"Global page ID {gid} out of range")
+        return int(self._data_page_rows[gid])
+
+    def page_index_entry(self, gid: int) -> PageIndexEntry:
+        r = self._page_row(gid)
+        return PageIndexEntry(
+            data_offset=int(self._pages["data_off"][r]),
+            data_size=int(self._pages["size"][r]),
+            row_group_idx=int(self._pages["rg"][r]),
+            column_idx=int(self._pages["col"][r]),
+        )
+
+    def read_page_data(self, gid: int) -> bytes:
+        e = self.page_index_entry(gid)
+        return self.read_range(e.data_offset, e.data_size)
+
+    def read_pages_chunk(self, start_gid: int, end_gid: int, max_bytes: int) -> bytes:
+        # Inclusive range with a per-page byte budget, matching the reference
+        # (src/reader/parquet_reader.cpp:194-231).
+        if start_gid >= self.num_pages():
+            raise IndexError(f"Start page ID {start_gid} out of range")
+        if end_gid >= self.num_pages():
+            raise IndexError(f"End page ID {end_gid} out of range")
+        if start_gid > end_gid:
+            raise IndexError("Start page ID must be <= end page ID")
+        out = bytearray()
+        for gid in range(start_gid, end_gid + 1):
+            remaining = max_bytes - len(out)
+            if remaining <= 0:
+                break
+            e = self.page_index_entry(gid)
+            out += self.read_range(e.data_offset, min(e.data_size, remaining))
+        return bytes(out)
+
+    def page_iterator(self, start: int = 0, end: int | None = None) -> "PageIterator":
+        n = self.num_pages()
+        if end is None:
+            end = n
+        if start > n or end > n:
+            raise IndexError("page range out of bounds")
+        if start > end:
+            raise IndexError("start_page_id must be <= end_page_id")
+        return PageIterator(self, start, end)
+
+    # ── streaming string iteration ──────────────────────────────────────────
+
+    def column_iterator(self, name: str) -> "StringColumnIterator":
+        info = self.column(name)
+        if info.type != ParquetType.BYTE_ARRAY:
+            raise TypeError(
+                f"Column '{name}' is not BYTE_ARRAY (type: {info.type_name()})"
+            )
+        return StringColumnIterator(self, self.find_column(name))
+
+
+class PageIterator:
+    """Lazy iterator over [start, end) global data-page ids (parity:
+    reference PageIterator, src/reader/parquet_reader.cpp:242-261)."""
+
+    def __init__(self, reader: ParquetReader, start: int, end: int):
+        self._reader = reader
+        self._start = start
+        self._end = end
+        self._cur = start
+
+    def has_next(self) -> bool:
+        return self._cur < self._end
+
+    def next(self) -> RawPage:
+        if not self.has_next():
+            raise StopIteration("PageIterator: no more pages")
+        gid = self._cur
+        e = self._reader.page_index_entry(gid)
+        self._cur += 1
+        return RawPage(
+            page_id=gid,
+            row_group_idx=e.row_group_idx,
+            column_idx=e.column_idx,
+            data=self._reader.read_page_data(gid),
+        )
+
+    def reset(self) -> None:
+        self._cur = self._start
+
+    def __iter__(self) -> Iterator[RawPage]:
+        while self.has_next():
+            yield self.next()
+
+
+class StringColumnIterator:
+    """Streams (global_row_pos, length, bytes) for the NON-NULL values of a
+    BYTE_ARRAY column — null rows are skipped, and dictionary indices that
+    fall outside the dictionary are silently dropped, exactly like the
+    reference iterator (src/reader/parquet_reader.cpp:425-453)."""
+
+    def __init__(self, reader: ParquetReader, col_idx: int):
+        batch = reader.prescan(col_idx)
+        self._pos, self._lens, self._offs, self._chars = _string_stream(batch)
+        self._i = 0
+
+    def has_next(self) -> bool:
+        return self._i < len(self._pos)
+
+    def next(self) -> tuple[int, int, bytes]:
+        if not self.has_next():
+            raise StopIteration("StringColumnIterator: no more strings")
+        i = self._i
+        self._i += 1
+        off = self._offs[i]
+        ln = self._lens[i]
+        return int(self._pos[i]), int(ln), bytes(self._chars[off : off + ln])
+
+    def __iter__(self):
+        while self.has_next():
+            yield self.next()
+
+
+# ── materialization helpers ─────────────────────────────────────────────────
+
+
+def _wrap_native_column(batch: DecodeBatch, ptype: ParquetType,
+                        file_chars: np.ndarray | None) -> DecodedColumn | None:
+    """Wraps the pre-scan's PS_COLUMN arrays into a DecodedColumn (zero
+    further work); None when the native fast path was declined."""
+    if not int(batch.dims.get("col_mat", 0)):
+        return None
+    arrays = batch.arrays
+    total = int(batch.dims["total_rows"])
+    valid = arrays["col_valid"][:total].view(bool)
+    if ptype == ParquetType.BYTE_ARRAY:
+        # col_chars_owned: offsets index the batch-owned str_chars copy
+        # (compressed chunks — no file views possible) instead of the mmap
+        if int(batch.dims.get("col_chars_owned", 0)):
+            plain_chars = arrays.get("str_chars", np.zeros(0, np.uint8))
+        elif file_chars is not None:
+            plain_chars = file_chars
+        else:
+            return None
+        dict_chars = arrays.get("dict_chars", np.zeros(0, np.uint8))
+        return DecodedColumn(
+            ptype,
+            StringValues(arrays["col_offs"][:total], arrays["col_lens"][:total],
+                         arrays["col_src"][:total], (plain_chars, dict_chars)),
+            valid,
+        )
+    vals = arrays["col_values"][:total]
+    if ptype == ParquetType.BOOLEAN:
+        return DecodedColumn(ptype, vals[:, 0].view(bool), valid)
+    dtype = _NUMPY_DTYPES.get(ptype)
+    if dtype is not None:
+        return DecodedColumn(ptype, vals.view(dtype).reshape(total), valid)
+    # INT96 / FLBA: w-byte values as lazy bytes
+    w = vals.shape[1]
+    return DecodedColumn(
+        ptype,
+        StringValues(
+            np.arange(total, dtype=np.int64) * w,
+            np.where(valid, w, -1).astype(np.int32),
+            np.zeros(total, np.uint8),
+            (vals.reshape(-1), np.zeros(0, np.uint8)),
+        ),
+        valid,
+    )
+
+
+def _materialize_fixed(batch: DecodeBatch, *, device) -> DecodedColumn:
+    """Decode fixed-width / boolean pages on `device` (ops/decode.
+    decode_fixed_device), bring the planes and the validity back, and
+    flatten page-major into one typed column."""
+    planes, nonnull = _decode.decode_fixed_device(
+        batch.arrays, batch.plain_planes, batch.dict_planes, batch.bool_bits,
+        max_def=batch.max_def, out_len=batch.vmax, nn_len=batch.nn_cap,
+        mode=batch.mode, device=device)
+    return _flatten_decoded(batch, planes, nonnull)
+
+
+def _flatten_decoded(batch: DecodeBatch, planes, nonnull) -> DecodedColumn:
+    """Decoded [n_pages, vmax] value planes and validity (tensors on any
+    device) -> one typed page-major column on the host: the cells below
+    each page's value count, in page order."""
+    planes = [p.cpu().numpy() for p in planes]
+    nonnull = nonnull.cpu().numpy()
+    nv = np.asarray(batch.arrays["page_num_values"])
+    keep = np.arange(batch.vmax)[None, :] < nv[:, None]
+    valid = nonnull[keep]
+    if batch.type == ParquetType.BOOLEAN:
+        values = planes[0][keep].astype(bool)
+    elif batch.type == ParquetType.INT96:
+        raw = _decode.planes_to_array(
+            [p[keep] for p in planes], np.dtype("V12")
+        )
+        values = [bytes(v) for v in raw]
+    else:
+        values = _decode.planes_to_array([p[keep] for p in planes], batch.value_dtype)
+    return DecodedColumn(batch.type, values, valid)
+
+
+def _materialize_flba(batch: DecodeBatch) -> DecodedColumn:
+    """read_column for FIXED_LEN_BYTE_ARRAY: w-byte values as lazy
+    StringValues over the packed plain / dictionary buffers (the reference
+    reader rejects this type — src/reader/column_reader.cpp:254-255; the
+    engine decodes it through the fixed-width machinery)."""
+    arrays = batch.arrays
+    w = int(batch.dims["plain_w"])
+    nonnull, nn_idx, dict_idx, ok, _row_start, is_dict = _string_positions(batch)
+    nv = arrays["page_num_values"]
+    total = int(nv.sum())
+
+    valid = np.zeros(total, bool)
+    offs = np.zeros(total, np.int64)
+    lens = np.full(total, -1, np.int32)
+    src = np.zeros(total, np.uint8)
+    page_base = np.concatenate([[0], np.cumsum(nv)])
+
+    emit = np.where(is_dict[:, None], nonnull & ok, nonnull)
+    pages, rows = np.nonzero(emit)
+    flat = page_base[pages] + rows
+    valid[flat] = True
+    lens[flat] = w
+
+    pitch = arrays["plain_fixed"].shape[1] if "plain_fixed" in arrays else 0
+    sel_dict = is_dict[pages]
+    if np.any(~sel_dict):
+        f = flat[~sel_dict]
+        offs[f] = (pages[~sel_dict].astype(np.int64) * pitch
+                   + nn_idx[pages, rows][~sel_dict].astype(np.int64) * w)
+    if np.any(sel_dict):
+        g = (arrays["page_dict_base"][pages] + dict_idx[pages, rows])[sel_dict]
+        offs[flat[sel_dict]] = g.astype(np.int64) * w
+        src[flat[sel_dict]] = 1
+    plain_flat = (arrays["plain_fixed"].reshape(-1)
+                  if "plain_fixed" in arrays else np.zeros(0, np.uint8))
+    dict_flat = (arrays["dict_fixed"].reshape(-1)
+                 if "dict_fixed" in arrays else np.zeros(0, np.uint8))
+    return DecodedColumn(
+        ParquetType.FIXED_LEN_BYTE_ARRAY,
+        StringValues(offs, lens, src, (plain_flat, dict_flat)),
+        valid,
+    )
+
+
+def _string_positions(batch: DecodeBatch):
+    """Row positions / dict indices for a BYTE_ARRAY batch (numpy path).
+
+    Returns (plain_sel, dict_sel) where each is (rows_flat, pages_flat, ...)
+    describing the emitted values in page-major row order.
+    """
+    arrays = batch.arrays
+    core = batch.to_device("cpu", _decode.DECODE_ARRAYS)
+    nonnull_t, nn_idx_t = _decode.decode_levels(core, batch.max_def,
+                                                batch.vmax)
+    nonnull, nn_idx = nonnull_t.numpy(), nn_idx_t.numpy()
+    row_start = arrays["page_row_start"]
+    is_dict = arrays["page_kind"] == 1
+
+    if bool(np.any(is_dict)):
+        dict_idx_t, ok_t = _decode.decode_dict_indices(
+            core, nn_idx_t, batch.nn_cap, nonnull=nonnull_t)
+        dict_idx, ok = dict_idx_t.numpy(), ok_t.numpy()
+    else:
+        dict_idx = np.zeros_like(nonnull, np.int32)
+        ok = np.zeros_like(nonnull, bool)
+    return nonnull, nn_idx, dict_idx, ok, row_start, is_dict
+
+
+def _string_stream(batch: DecodeBatch):
+    """Flattens a BYTE_ARRAY batch into the iterator stream: positions, lens,
+    offsets and a single chars buffer (dict values resolved)."""
+    arrays = batch.arrays
+    nonnull, nn_idx, dict_idx, ok, row_start, is_dict = _string_positions(batch)
+
+    emit = np.where(is_dict[:, None], nonnull & ok, nonnull)
+    pages, rows = np.nonzero(emit)
+    pos = row_start[pages] + rows
+
+    n = len(pages)
+    lens = np.zeros(n, np.int64)
+    offs = np.zeros(n, np.int64)
+
+    chars_plain = arrays.get("str_chars", np.zeros(0, np.uint8))
+    chars_dict = arrays.get("dict_chars", np.zeros(0, np.uint8))
+    chars = np.concatenate([chars_plain, chars_dict])
+    dict_shift = len(chars_plain)
+
+    sel_dict = is_dict[pages]
+    # plain: nn rank within page -> global string table entry
+    if "str_nn_start" in arrays and np.any(~sel_dict):
+        entry = arrays["str_nn_start"][pages] + nn_idx[pages, rows]
+        entry = entry[~sel_dict]
+        lens[~sel_dict] = arrays["str_lens"][entry]
+        offs[~sel_dict] = arrays["str_offs"][entry]
+    if np.any(sel_dict):
+        g = arrays["page_dict_base"][pages] + dict_idx[pages, rows]
+        g = g[sel_dict]
+        lens[sel_dict] = arrays["dict_lens"][g]
+        offs[sel_dict] = arrays["dict_offs"][g] + dict_shift
+    return pos, lens, offs, chars
+
+
+def _materialize_strings(batch: DecodeBatch,
+                         file_chars: np.ndarray | None = None) -> DecodedColumn:
+    """read_column semantics for BYTE_ARRAY: one slot per row; dict
+    out-of-range -> NULL (reference: src/reader/column_reader.cpp:185-196).
+
+    Fully vectorized: the decode produces columnar (offset, length, buffer)
+    tables; `bytes` objects materialize lazily via StringValues — no
+    per-value Python loop anywhere.  With a PS_STR_VIEWS batch (str_abs=1)
+    the offsets index straight into `file_chars` (the mmap view): zero
+    copies end to end."""
+    arrays = batch.arrays
+    nonnull, nn_idx, dict_idx, ok, _row_start, is_dict = _string_positions(batch)
+    nv = arrays["page_num_values"]
+    total = int(nv.sum())
+
+    valid = np.zeros(total, bool)
+    offs = np.zeros(total, np.int64)
+    lens = np.full(total, -1, np.int32)
+    src = np.zeros(total, np.uint8)
+    page_base = np.concatenate([[0], np.cumsum(nv)])
+
+    emit = np.where(is_dict[:, None], nonnull & ok, nonnull)
+    pages, rows = np.nonzero(emit)
+    flat = page_base[pages] + rows
+    valid[flat] = True
+
+    if int(batch.dims.get("str_abs", 0)):
+        if file_chars is None:
+            raise ValueError("str-view batch needs the reader's file mapping")
+        chars_plain = file_chars
+    else:
+        chars_plain = arrays.get("str_chars", np.zeros(0, np.uint8))
+    chars_dict = arrays.get("dict_chars", np.zeros(0, np.uint8))
+    sel_dict = is_dict[pages]
+    if "str_nn_start" in arrays and np.any(~sel_dict):
+        entry = (arrays["str_nn_start"][pages] + nn_idx[pages, rows])[~sel_dict]
+        f = flat[~sel_dict]
+        offs[f] = arrays["str_offs"][entry]
+        lens[f] = arrays["str_lens"][entry]
+    if np.any(sel_dict):
+        g = (arrays["page_dict_base"][pages] + dict_idx[pages, rows])[sel_dict]
+        f = flat[sel_dict]
+        offs[f] = arrays["dict_offs"][g]
+        lens[f] = arrays["dict_lens"][g]
+        src[f] = 1
+    return DecodedColumn(
+        ParquetType.BYTE_ARRAY,
+        StringValues(offs, lens, src, (chars_plain, chars_dict)),
+        valid,
+    )

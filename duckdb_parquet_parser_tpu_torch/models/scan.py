@@ -2,22 +2,33 @@
 pruning over a BYTE_ARRAY column.
 
 Port of `duckdb_parquet_parser_tpu.models.scan` (`ScanEngine.__init__ /
-resident / scan / cold_scan`, `ResidentColumn`).  The flow: prescan the
-column on the host, upload the raw page payloads once (byte streams in
-the stream matcher's chunked layout, in length buckets — or, for big
-pages, as value-boundary segments), then per query walk the PLAIN bytes
-through the stream matcher (kernel K1), count the accepted values of
-dictionary pages in the dictionary kernel (K2), and report matches per
-page.  Pages with zero matches
-are pruned.  `cold_scan` is the native host scan, with no device.
+resident / scan / matching_rows / cold_scan / scan_batched /
+scan_streaming`, `ResidentColumn`, `build_example_batch`,
+`single_chip_forward`).  The resident flow: prescan the column on the
+host, upload the raw page payloads once (byte streams in the stream
+matcher's chunked layout, in length buckets — or, for big pages, as
+value-boundary segments), then per query walk the PLAIN bytes through the
+stream matcher (kernel K1), count the accepted values of dictionary pages
+in the dictionary kernel (K2), and report matches per page.  Pages with
+zero matches are pruned.  `scan_batched` and `scan_streaming` are the
+one-shot device scans of a big or cold file: pages go to the device in
+blocks, through pinned host memory on a side stream, so a block's copy
+overlaps the walk of the one before it (and, streaming, the host prescan of
+the next row group).  `cold_scan` is the native host scan, with no device.
 
 Every device entry point takes an explicit `device`.  On CUDA the kernels
-run or the call raises; there is no fallback.  Patterns outside the DFA
-subset raise NotImplementedError (the reference's host `re` fallback is
-not ported).
+run or the call raises; there is no fallback from a kernel.  A pattern
+outside the DFA subset is a different route by pattern class: `ScanEngine.
+scan`, `cold_scan` and `matching_rows` answer it with the host `re`
+fallback (ops/scan.py), as the reference does, and the resident column and
+the block scans refuse it, as the reference's do.
 """
 
 from __future__ import annotations
+
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -26,11 +37,22 @@ from ..host import bindings
 from ..host.batch import to_tensor
 from ..host.reader import ParquetReader
 from ..host.schema import ParquetType
+from ..host.writer import ColumnSpec, ParquetWriter
 from ..ops import decode as _decode
 from ..ops import scan as _scan
 from ..ops import strings as _strings
-from ..ops.regex import anchored_prune_range, like_to_regex, substring_chain
+from ..ops.kernels import dict_lookup, stream_matcher
+from ..ops.regex import (
+    UnsupportedPattern,
+    anchored_prune_range,
+    compile_pattern,
+    like_to_regex,
+    substring_chain,
+)
 from ..ops.scan import PageMatchResult
+from ..utils.config import get_config
+from ..utils.metrics import get_metrics
+from ..utils.tracing import stage, trace_session
 
 
 def _check_byte_array(reader: ParquetReader, column: str) -> None:
@@ -39,6 +61,116 @@ def _check_byte_array(reader: ParquetReader, column: str) -> None:
         raise TypeError(
             f"regex scan requires a BYTE_ARRAY column; '{column}' is "
             f"{info.type_name()}")
+
+
+class _BlockWalker:
+    """Ships page blocks to a device and walks them there: on CUDA a
+    block's payload rows go through one of two pinned host buffers and a
+    side stream, so the copy of block i + 1 overlaps the walk of block i on
+    the current stream; the device lays the rows out in the stream
+    matcher's chunked layout.  Results stay on the device until `collect`;
+    `host_seconds` sums the host's copies into the block buffers."""
+
+    def __init__(self, device, irs, dfa):
+        self.device = torch.device(device)
+        self.irs, self.dfa = irs, dfa
+        self.cuda = self.device.type == "cuda"
+        self.pending: list[torch.Tensor] = []
+        self.host_seconds = 0.0
+        if self.cuda:
+            if irs:
+                stream_matcher.prepare([irs])
+            self.copy_stream = torch.cuda.Stream(self.device)
+            self.slots = [{"buf": None, "free": None} for _ in range(2)]
+            self.turn = 0
+
+    def _pinned(self, nbytes: int) -> dict:
+        """The next pinned slot, free again (its last copy has ended) and
+        at least `nbytes` long."""
+        slot = self.slots[self.turn]
+        self.turn ^= 1
+        if slot["free"] is not None:
+            slot["free"].synchronize()
+        if slot["buf"] is None or slot["buf"].numel() < nbytes:
+            slot["buf"] = torch.empty(nbytes, dtype=torch.uint8,
+                                      pin_memory=True)
+        return slot
+
+    def walk(self, payload: np.ndarray, plen: np.ndarray, nn: np.ndarray,
+             negate: bool) -> None:
+        """Queues the walk of one block: payload [n, pitch] u8 rows, plen /
+        nn [n] (zero on lanes that must not walk)."""
+        n = payload.shape[0]
+        steps = _scan.scan_steps(plen)
+        rows = payload[:, :steps]                # the bytes the walk reads
+        meta = np.stack([plen, nn]).astype(np.int32)
+        t0 = time.perf_counter()
+        if self.cuda:
+            slot = self._pinned(rows.size)
+            host = slot["buf"][:rows.size].view(rows.shape)
+            np.copyto(host.numpy(), rows)
+            self.host_seconds += time.perf_counter() - t0
+            with torch.cuda.stream(self.copy_stream):
+                raw = host.to(self.device, non_blocking=True)
+                meta_d = torch.from_numpy(meta).to(self.device)
+                slot["free"] = torch.cuda.Event()
+                slot["free"].record()
+            torch.cuda.current_stream().wait_stream(self.copy_stream)
+            raw.record_stream(torch.cuda.current_stream())
+            meta_d.record_stream(torch.cuda.current_stream())
+        else:
+            raw = torch.from_numpy(np.array(rows, order="C"))
+            self.host_seconds += time.perf_counter() - t0
+            meta_d = torch.from_numpy(meta)
+        # the stream matcher's chunked layout, made on the device as the
+        # resident column makes it
+        stream = stream_matcher.chunk_stream(raw.t())
+        hits = _scan.walk_hits(stream, meta_d[0], meta_d[1], self.irs,
+                               self.dfa, steps)[0]
+        self.pending.append((meta_d[1] - hits) if negate else hits)
+
+    def skip(self, n: int) -> None:
+        """Queues `n` lanes that need no walk (a block of dictionary pages
+        only): zero counts, no copy and no launch."""
+        self.pending.append(torch.zeros(n, dtype=torch.int32,
+                                        device=self.device))
+
+    def collect(self) -> np.ndarray:
+        """The queued blocks' per-lane counts, in order, on the host."""
+        out = [h.cpu().numpy() for h in self.pending]
+        self.pending = []
+        return (np.concatenate(out) if out else np.zeros(0, np.int32))
+
+
+def _dict_page_counts(batch, dfas, negate: bool, device) -> torch.Tensor:
+    """[N] int32 match counts of a batch's dictionary pages on `device`
+    (0 on its other pages): the dictionary kernel over the batch's index
+    and level planes."""
+    core = batch.to_device(device, _decode.DECODE_ARRAYS)
+    table = _scan.accept_table(_scan.dict_accepts(batch, dfas), device)
+    counts, _values = _scan.dict_counts(
+        core, table, vmax=batch.vmax, nn_cap=batch.nn_cap,
+        max_def=batch.max_def, negate=bool(negate))
+    return counts[0]
+
+
+def _walk_batch(walker: _BlockWalker, batch, block_pages: int,
+                negate: bool) -> None:
+    """Queues the PLAIN pages of `batch` on `walker`, `block_pages` pages a
+    block (dictionary pages ride along as empty lanes; a block without a
+    PLAIN page is not walked)."""
+    arrays = batch.arrays
+    is_dict = np.asarray(arrays["page_kind"]) == 1
+    plen = np.where(is_dict, 0, arrays["page_payload_len"])
+    nn = np.where(is_dict, 0, arrays["page_nn"])
+    for lo in range(0, batch.n_pages, block_pages):
+        hi = min(lo + block_pages, batch.n_pages)
+        if is_dict[lo:hi].all():
+            walker.skip(hi - lo)
+            continue
+        with stage("upload"):
+            walker.walk(arrays["payload"][lo:hi], plen[lo:hi], nn[lo:hi],
+                        negate)
 
 
 class ScanEngine:
@@ -50,9 +182,29 @@ class ScanEngine:
     def scan(self, column: str, pattern: str, *, negate: bool = False,
              like: bool = False, device) -> PageMatchResult:
         """One-shot scan: uploads the column to `device` and runs one
-        query."""
-        return self.resident(column, device).scan(pattern, negate=negate,
-                                                  like=like)
+        query.  A pattern outside the DFA subset is answered on the host
+        with `re` (ops/scan.scan_batch_fallback)."""
+        _check_byte_array(self.reader, column)
+        pat = like_to_regex(pattern) if like else pattern
+        try:
+            compile_pattern(pat)
+        except UnsupportedPattern:
+            batch = self.reader.prescan(column, pad_strings=8)
+            return _scan.scan_batch_fallback(batch, pat, negate=negate)
+        return self.resident(column, device).scan(pat, negate=negate)
+
+    def matching_rows(self, column: str, pattern: str, *,
+                      negate: bool = False, like: bool = False,
+                      device) -> np.ndarray:
+        """Absolute row ids of the non-null values matching `pattern` — the
+        row-level result the page scan prunes toward ('WHERE col ~
+        pattern'), computed on `device`.  Same participation / negate
+        semantics as scan(); combine with read_rows() for point decodes of
+        the hits."""
+        _check_byte_array(self.reader, column)
+        pat = like_to_regex(pattern) if like else pattern
+        batch = self.reader.prescan(column, pad_strings=8)
+        return _scan.match_rows(batch, pat, negate=negate, device=device)
 
     def cold_scan(self, column: str, pattern: str, *, negate: bool = False,
                   like: bool = False, exact_counts: bool = False,
@@ -65,36 +217,161 @@ class ScanEngine:
         range (never under `negate`); with `exact_counts=True,
         stats_prune=False` the result is an independent reference for the
         device scan's per-page counts."""
+        return cold_scan(self.reader, column, pattern, negate=negate,
+                         like=like, exact_counts=exact_counts,
+                         stats_prune=stats_prune)
+
+    def scan_batched(self, column: str, pattern: str, *,
+                     negate: bool = False, batch_pages: int = 16384,
+                     device) -> PageMatchResult:
+        """Large-file scan with overlap: one prescan of the column, then
+        its pages go to `device` in blocks of `batch_pages`; block i + 1 is
+        copied while block i walks (`_BlockWalker`).  The
+        reference pads every block to one compiled shape; nothing is
+        compiled per shape here, so the tail block goes as it is."""
         _check_byte_array(self.reader, column)
-        pat = like_to_regex(pattern) if like else pattern
-        prange = (anchored_prune_range(pat)
-                  if stats_prune and not negate else None)
-        chain = substring_chain(pat)
-        if chain:
-            kw = dict(needles=chain)
-        else:
-            _pats, (dfa,) = _scan.prepare_patterns([pat])
-            kw = dict(table=dfa.table, accept=dfa.accept.astype(np.uint8))
-        try:
-            dims, arrays = bindings.native_cold_scan(
-                self.reader.handle, self.reader.find_column(column), 0, -1,
-                negate=negate, exact=exact_counts, prune_range=prange, **kw)
-        except bindings.NativeError as e:
-            if "unsupported value encoding" in str(e):
-                raise NotImplementedError(
-                    f"{column}: delta-coded string pages are not supported "
-                    "by the native scan; use resident()") from e
-            raise
-        res = PageMatchResult(page_gid=arrays["page_gid"].copy(),
-                              match_counts=arrays["match_counts"].copy(),
-                              value_counts=arrays["value_counts"].copy())
-        res.stats_pruned_pages = int(dims.get("stats_pruned_pages", 0))
-        return res
+        pats, dfas = _scan.prepare_patterns([pattern])
+        irs, dfa = _scan.resolve_matchers(pats)
+        with trace_session(get_config().profile_dir):
+            with get_metrics().timed("prescan", column=column) as box, \
+                    stage("prescan"):
+                batch = self.reader.prescan(column, pad_strings=8,
+                                            flags=bindings.PS_PAYLOAD)
+                box["pages"] = batch.n_pages
+            arrays = batch.arrays
+            n = batch.n_pages
+            if _scan.scan_steps(arrays["page_payload_len"]) \
+                    > _scan.SPLIT_TRIGGER:
+                # big pages: blocks would walk one mega-page per lane —
+                # the value-boundary split layout instead
+                return ResidentColumn(self.reader, column, device=device,
+                                      batch=batch).scan(pattern,
+                                                        negate=negate)
+            bp = min(batch_pages, max(n, 1))
+            walker = _BlockWalker(device, irs, dfa)
+            with get_metrics().timed("scan_dispatch",
+                                     batches=-(-n // bp)) as box, \
+                    stage("scan_dispatch"):
+                _walk_batch(walker, batch, bp, negate)
+                box["host_copy_seconds"] = walker.host_seconds
+            is_dict = np.asarray(arrays["page_kind"]) == 1
+            dict_counts = (_dict_page_counts(batch, dfas, negate, device)
+                           if bool(is_dict.any()) else None)
+            with stage("collect"):
+                counts = walker.collect()
+                if dict_counts is not None:
+                    counts = np.where(is_dict, dict_counts.cpu().numpy(),
+                                      counts)
+        return PageMatchResult(
+            page_gid=arrays["page_gid"].copy(),
+            match_counts=counts.astype(np.int64),
+            value_counts=arrays["page_nn"].astype(np.int64))
+
+    def scan_streaming(self, column: str, pattern: str, *,
+                       negate: bool = False, block_pages: int | None = None,
+                       device) -> PageMatchResult:
+        """Pipelined COLD device scan: prescan -> copy -> walk overlap.
+
+        Per-row-group prescans run on a host worker thread and stream into
+        page blocks (`block_pages` pages, default a whole row group); each
+        block's copy and walk are asynchronous, so the host prescan of row
+        group i + 1 overlaps the transfer and walk of row group i's blocks.
+        The pattern's kernel is built before the first block
+        (`stream_matcher.prepare`, the role of the reference's cached jit
+        step).  The reference's `payload_bucket` pinned one compiled shape
+        and has no counterpart here.  This is the device-side answer to a
+        one-shot scan on a cold file (cold_scan() is the host-side one;
+        resident() serves repeated queries)."""
+        _check_byte_array(self.reader, column)
+        pats, dfas = _scan.prepare_patterns([pattern])
+        irs, dfa = _scan.resolve_matchers(pats)
+        walker = _BlockWalker(device, irs, dfa)
+        col_idx = self.reader.find_column(column)
+        n_rg = self.reader.num_row_groups()
+
+        def prescan_rg(rg):
+            return self.reader.prescan(col_idx, rg, rg + 1, pad_strings=8,
+                                       flags=bindings.PS_PAYLOAD)
+
+        first = prescan_rg(0)
+        if first.n_pages and int(first.arrays["page_payload_len"].max()) \
+                > _scan.SPLIT_TRIGGER:
+            # big pages: the value-boundary split layout instead
+            return ResidentColumn(self.reader, column,
+                                  device=device).scan(pattern, negate=negate)
+
+        done = []  # (batch, pages walked before it, dict counts or None)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            futures = [pool.submit(prescan_rg, rg) for rg in range(1, n_rg)]
+            at = 0
+            for rg in range(n_rg):
+                # rg i + 1 prescans while rg i ships and walks
+                batch = first if rg == 0 else futures[rg - 1].result()
+                _walk_batch(walker, batch, block_pages or max(batch.n_pages,
+                                                              1), negate)
+                is_dict = np.asarray(batch.arrays["page_kind"]) == 1
+                done.append((batch, at, _dict_page_counts(
+                    batch, dfas, negate, device) if is_dict.any() else None))
+                at += batch.n_pages
+
+        walked = walker.collect()
+        gids, counts_parts, values_parts = [], [], []
+        for batch, at, dict_counts in done:
+            counts = walked[at:at + batch.n_pages]
+            if dict_counts is not None:
+                counts = np.where(np.asarray(batch.arrays["page_kind"]) == 1,
+                                  dict_counts.cpu().numpy(), counts)
+            gids.append(batch.arrays["page_gid"].copy())
+            counts_parts.append(counts.astype(np.int64))
+            values_parts.append(batch.arrays["page_nn"].astype(np.int64))
+        return PageMatchResult(
+            page_gid=np.concatenate(gids),
+            match_counts=np.concatenate(counts_parts),
+            value_counts=np.concatenate(values_parts))
 
     def resident(self, column: str, device) -> "ResidentColumn":
         """Uploads the column's page buffers to `device` once for repeated
         queries."""
         return ResidentColumn(self.reader, column, device=device)
+
+
+def cold_scan(reader: ParquetReader, column: str, pattern: str, *,
+              negate: bool = False, like: bool = False,
+              exact_counts: bool = False,
+              stats_prune: bool = True) -> PageMatchResult:
+    """Free-function form of ScanEngine.cold_scan over an open reader.  A
+    pattern outside the DFA subset takes the host `re` fallback, and
+    delta-coded string pages, which the native scan does not read, re-run
+    through the prescan path (`scan_batch` on the CPU)."""
+    _check_byte_array(reader, column)
+    pat = like_to_regex(pattern) if like else pattern
+    prange = (anchored_prune_range(pat)
+              if stats_prune and not negate else None)
+    chain = substring_chain(pat)
+    if chain:
+        kw = dict(needles=chain)
+    else:
+        try:
+            dfa = compile_pattern(pat)
+        except UnsupportedPattern:
+            batch = reader.prescan(column, pad_strings=8)
+            return _scan.scan_batch_fallback(batch, pat, negate=negate)
+        kw = dict(table=dfa.table, accept=dfa.accept.astype(np.uint8))
+    try:
+        dims, arrays = bindings.native_cold_scan(
+            reader._h, reader.find_column(column), 0, -1, negate=negate,
+            exact=exact_counts, prune_range=prange, **kw)
+    except bindings.NativeError as e:
+        if "unsupported value encoding" not in str(e):
+            raise
+        batch = reader.prescan(column, pad_strings=8)
+        return _scan.scan_batch(batch, pat, negate=negate, device="cpu")
+    return PageMatchResult(
+        page_gid=arrays["page_gid"].copy(),
+        match_counts=arrays["match_counts"].copy(),
+        value_counts=arrays["value_counts"].copy(),
+        stats_pruned_pages=int(dims.get("stats_pruned_pages", 0)),
+        dict_skipped_pages=int(dims.get("dict_skipped_pages", 0)))
 
 
 class ResidentColumn:
@@ -110,11 +387,14 @@ class ResidentColumn:
     only over PLAIN pages and the dictionary kernel only over dictionary
     pages."""
 
-    def __init__(self, reader: ParquetReader, column: str, *, device):
+    def __init__(self, reader: ParquetReader, column: str, *, device,
+                 batch=None):
+        """`batch`: the column's PS_PAYLOAD prescan when the caller already
+        has it (prescanned here otherwise)."""
         _check_byte_array(reader, column)
         self.device = torch.device(device)
-        self._batch = reader.prescan(column, pad_strings=8,
-                                     flags=bindings.PS_PAYLOAD)
+        self._batch = batch if batch is not None else reader.prescan(
+            column, pad_strings=8, flags=bindings.PS_PAYLOAD)
         arrays = self._batch.arrays
         plen = np.asarray(arrays["page_payload_len"])
         is_dict = np.asarray(arrays["page_kind"]) == 1
@@ -214,3 +494,79 @@ class ResidentColumn:
                                              value_counts=v[r].copy())
         return results
 
+
+
+# ── a self-contained example: one fused forward step on a small batch ───────
+
+
+def build_example_batch(tmpdir: str, *, rows: int = 400):
+    """Writes a small two-row-group string fixture (a dictionary-encoded
+    row group and a PLAIN one, 10% nulls) and prescans it.  Returns
+    (reader, batch)."""
+    rng = np.random.default_rng(0)
+    path = os.path.join(tmpdir, "graft_example.parquet")
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def strings(n, uniq):
+        if uniq:
+            pool = [f"word_{i}_{'x' * (i % 5)}".encode() for i in range(uniq)]
+            return [pool[int(rng.integers(uniq))] for _ in range(n)]
+        return [bytes(rng.choice(letters, int(rng.integers(3, 25))))
+                for _ in range(n)]
+
+    w = ParquetWriter(
+        path, [ColumnSpec("s", ParquetType.BYTE_ARRAY, optional=True)],
+        key_value={"pad": "x" * 512},
+    )
+    vals = strings(rows, 8) + strings(rows, None)
+    w.write_row_group({"s": [None if rng.random() < 0.1 else v
+                             for v in vals[:rows]]})
+    w.write_row_group({"s": [None if rng.random() < 0.1 else v
+                             for v in vals[rows:]]})
+    w.close()
+    reader = ParquetReader(path)
+    return reader, reader.prescan(
+        "s", pad_strings=8,
+        flags=bindings.PS_HOST_STRINGS | bindings.PS_PAYLOAD)
+
+
+def single_chip_forward(batch, pattern: str, *, device):
+    """Returns (fn, example_args): one fused decode + match + count step on
+    a page batch on `device` — the raw-payload byte walk for PLAIN pages
+    (kernel K1 for a register-machine pattern), the dictionary path for the
+    rest: levels, index planes, and the per-entry accepts looked up through
+    the dictionary kernel's gather entry (K2).  `fn(*example_args)` gives
+    the [N] per-page match counts.  (The reference takes a compiled DFA
+    for its one-hot table walk; the kernel's register machine is traced
+    from the pattern, so this takes the pattern.)"""
+    pats, (dfa_c,) = _scan.prepare_patterns([pattern])
+    irs, dfa = _scan.resolve_matchers(pats)
+    arrays = batch.arrays
+    core = batch.to_device(device, _decode.DECODE_ARRAYS)
+    dict_match = _scan.accept_table(_scan.dict_accepts(batch, [dfa_c]),
+                                    device)[0]
+    vmax, nn_cap, max_def = batch.vmax, batch.nn_cap, batch.max_def
+    steps = min(_scan.scan_steps(arrays["page_payload_len"]),
+                arrays["payload"].shape[1])
+
+    def forward(core, stream, plen, dict_match):
+        is_dict = core["page_kind"] == 1
+        nn = core["page_nn"]
+        hits = _scan.walk_hits(stream, torch.where(is_dict, 0, plen),
+                               torch.where(is_dict, 0, nn), irs, dfa,
+                               steps)[0]
+        nonnull, nn_idx = _decode.decode_levels(core, max_def, vmax)
+        dict_idx, ok = _decode.decode_dict_indices(core, nn_idx, nn_cap,
+                                                   nonnull=nonnull)
+        g = (core["page_dict_base"][:, None] + dict_idx.clamp(min=0)).clamp(
+            0, dict_match.shape[0] - 1).to(torch.int32).contiguous()
+        dm = dict_lookup.dict_lookup(dict_match.to(torch.int32)[None],
+                                     g)[0] != 0
+        dict_counts = (dm & ok & nonnull).sum(dim=1).to(torch.int32)
+        return torch.where(is_dict, dict_counts, hits)
+
+    example_args = (
+        core, _scan.resident_stream(arrays["payload"], steps, device),
+        to_tensor(arrays["page_payload_len"], device, dtype=np.int32),
+        dict_match)
+    return forward, example_args

@@ -1,12 +1,15 @@
 """Regex page-pruning scan over a page batch, on tensors.
 
-Port of `duckdb_parquet_parser_tpu.ops.scan`.  The host helpers are copied
-here because the reference module imports its JAX decode at import time:
-`PageMatchResult`, `scan_steps`, `length_buckets`, `split_payload_pages`
-and the numpy `dfa_match`.  The device step
-(`_device_scan_step` / `_device_scan_multi_step` in the reference) is
-`device_scan_step`; the resident column (models/scan.py) drives it, and
-the one-shot `ScanEngine.scan` goes through a resident column too.
+Port of `duckdb_parquet_parser_tpu.ops.scan`: the host helpers
+(`PageMatchResult`, `scan_steps`, `length_buckets`, `split_payload_pages`,
+the numpy `dfa_match`), the per-value scan over a pad_strings batch
+(`_value_accepts`, `scan_batch`, `match_rows`) and the host `re` fallback
+for patterns outside the DFA subset (`scan_batch_fallback`,
+`match_rows_fallback`: a route by pattern class, never taken because a
+kernel failed).  The device step (`_device_scan_step` /
+`_device_scan_multi_step` in the reference) is `device_scan_step`; the
+resident column (models/scan.py) drives it, and the one-shot
+`ScanEngine.scan` goes through a resident column too.
 
 Per query: PLAIN pages walk their raw payload bytes through the stream
 matcher (kernel K1 for register-machine patterns); dictionary pages count
@@ -18,6 +21,7 @@ pruned ones.
 
 from __future__ import annotations
 
+import re as _re
 from dataclasses import dataclass
 
 import numpy as np
@@ -83,6 +87,10 @@ class PageMatchResult:
     page_gid: np.ndarray        # [N] global data-page ids
     match_counts: np.ndarray    # [N] number of accepted (non-null) values
     value_counts: np.ndarray    # [N] number of participating values
+    # pages skipped via ColumnIndex min/max before any decode (cold path
+    # only; 0 when stats pruning did not apply)
+    stats_pruned_pages: int = 0
+    dict_skipped_pages: int = 0  # all-miss dict short-circuits (cold scan)
 
     def pruned_pages(self) -> np.ndarray:
         """Global ids of pages with NO accepted values (the reported set)."""
@@ -90,6 +98,152 @@ class PageMatchResult:
 
     def surviving_pages(self) -> np.ndarray:
         return self.page_gid[self.match_counts > 0]
+
+
+def dfa_match_device(chars: torch.Tensor, lens: torch.Tensor, table,
+                     accept) -> torch.Tensor:
+    """`dfa_match` on tensors: chars [L, P] u8, lens [L] int32 on one
+    device; returns [L] bool accepts there."""
+    dev = chars.device
+    tflat = torch.as_tensor(np.asarray(table, dtype=np.int32)).reshape(-1).to(
+        dev)
+    acc = torch.as_tensor(np.asarray(accept, dtype=bool)).to(dev)
+    state = torch.zeros(chars.shape[0], dtype=torch.int32, device=dev)
+    for j in range(chars.shape[1]):
+        nxt = tflat[(state * 256 + chars[:, j].to(torch.int32)).long()]
+        state = torch.where(j < lens, nxt, state)
+    return acc[state.long()]
+
+
+def _value_accepts(batch, dfa, *, negate: bool = False, device):
+    """Per-value accept / participation matrices in VALUE space, computed
+    on `device`.
+
+    Returns (emit [N, vmax] bool, participating [N, vmax] bool) tensors —
+    the single source of the scan semantics: PLAIN pages participate at
+    their non-null slots, dictionary pages additionally require an
+    in-range index; `negate` inverts the per-value match among
+    participating values.  scan_batch's page counts and match_rows' row
+    sets both reduce from these, so the two stay consistent by
+    construction."""
+    arrays = batch.arrays
+    if batch.dims.get("nn_total", 0) > 0 and "str_padded" not in arrays:
+        raise ValueError("batch was prescanned without pad_strings")
+
+    core = batch.to_device(device, _decode.DECODE_ARRAYS)
+    nonnull, nn_idx = _decode.decode_levels(core, batch.max_def, batch.vmax)
+    is_dict = (core["page_kind"] == 1)[:, None]
+    emit = torch.zeros_like(nonnull)
+    part = torch.zeros_like(nonnull)
+    any_dict = bool((arrays["page_kind"] == 1).any())
+    any_plain = bool((arrays["page_kind"] != 1).any())
+
+    has_plain = "str_padded" in arrays and arrays["str_padded"].shape[0] > 0
+    if has_plain and any_plain:
+        match = dfa_match_device(
+            to_tensor(arrays["str_padded"], device),
+            to_tensor(arrays["str_lens"], device, dtype=np.int32),
+            dfa.table, dfa.accept)
+        start = to_tensor(arrays["str_nn_start"][:-1], device).long()
+        entry = (start[:, None] + nn_idx).clamp(0, match.shape[0] - 1)
+        plain_part = nonnull & ~is_dict
+        emit |= (match[entry] ^ bool(negate)) & plain_part
+        part |= plain_part
+
+    has_dict = "dict_padded" in arrays and int(batch.dims.get("dict_n", 0)) > 0
+    if has_dict and any_dict:
+        dict_match = dfa_match_device(
+            to_tensor(arrays["dict_padded"], device),
+            to_tensor(arrays["dict_lens"], device, dtype=np.int32),
+            dfa.table, dfa.accept)
+        dict_idx, ok = _decode.decode_dict_indices(core, nn_idx, batch.nn_cap,
+                                                   nonnull=nonnull)
+        g = (core["page_dict_base"][:, None] + dict_idx.clamp(min=0)).clamp(
+            0, dict_match.shape[0] - 1).to(torch.int32).contiguous()
+        hit = dict_lookup.dict_lookup(dict_match.to(torch.int32)[None],
+                                      g)[0] != 0
+        dict_part = ok & nonnull & is_dict
+        emit |= (hit ^ bool(negate)) & dict_part
+        part |= dict_part
+    return emit, part
+
+
+def scan_batch(batch, pattern: str, *, negate: bool = False,
+               device) -> PageMatchResult:
+    """Evaluates `pattern` over a BYTE_ARRAY batch (prescanned with
+    pad_strings > 0) on `device` and counts accepted values per page; a
+    pattern outside the DFA subset takes the host `re` fallback."""
+    try:
+        dfa = compile_pattern(pattern)
+    except UnsupportedPattern:
+        return scan_batch_fallback(batch, pattern, negate=negate)
+
+    emit, part = _value_accepts(batch, dfa, negate=negate, device=device)
+    return PageMatchResult(
+        page_gid=batch.arrays["page_gid"].copy(),
+        match_counts=emit.sum(dim=1).cpu().numpy().astype(np.int64),
+        value_counts=part.sum(dim=1).cpu().numpy().astype(np.int64),
+    )
+
+
+def match_rows(batch, pattern: str, *, negate: bool = False,
+               device) -> np.ndarray:
+    """Global row ids of the NON-NULL values matching `pattern` — the
+    row-level companion to the page-pruning scan (value participation and
+    negate semantics are exactly scan_batch's, so `len(match_rows(...))`
+    equals `scan_batch(...).match_counts.sum()`).  Rows are absolute file
+    row indices; nulls never emit.  Requires a pad_strings prescan.
+    Returns a sorted int64 array."""
+    try:
+        dfa = compile_pattern(pattern)
+    except UnsupportedPattern:
+        return match_rows_fallback(batch, pattern, negate=negate)
+
+    emit, _part = _value_accepts(batch, dfa, negate=negate, device=device)
+    rows = (to_tensor(batch.arrays["page_row_start"], device,
+                      dtype=np.int64)[:, None]
+            + torch.arange(batch.vmax, dtype=torch.int64,
+                           device=emit.device)[None, :])
+    return torch.sort(rows[emit]).values.cpu().numpy()
+
+
+def match_rows_fallback(batch, pattern: str, *,
+                        negate: bool = False) -> np.ndarray:
+    """Host `re` fallback for patterns outside the DFA subset — identical
+    row sets."""
+    from ..host.reader import _string_stream  # late import to avoid cycle
+
+    rx = _re.compile(pattern.encode("utf-8", "surrogateescape"))
+    pos, lens, offs, chars = _string_stream(batch)
+    keep = [
+        int(p)
+        for p, ln, off in zip(pos, lens, offs)
+        if bool(rx.search(chars[off:off + ln].tobytes())) ^ negate
+    ]
+    return np.asarray(sorted(keep), np.int64)
+
+
+def scan_batch_fallback(batch, pattern: str, *,
+                        negate: bool = False) -> PageMatchResult:
+    """Host fallback (full `re` semantics) producing identical survivor sets
+    for patterns the DFA subset cannot express."""
+    from ..host.reader import _string_stream  # late import to avoid cycle
+
+    rx = _re.compile(pattern.encode("utf-8", "surrogateescape"))
+    pos, lens, offs, chars = _string_stream(batch)
+    # page of each emission: recover from row positions via page row ranges
+    row_start = batch.arrays["page_row_start"]
+    page_of = np.searchsorted(row_start, pos, side="right") - 1
+    n = batch.n_pages
+    counts = np.zeros(n, np.int64)
+    participating = np.zeros(n, np.int64)
+    for p, ln, off in zip(page_of, lens, offs):
+        s = chars[off:off + ln].tobytes()
+        m = (rx.search(s) is not None) ^ negate
+        counts[p] += m
+        participating[p] += 1
+    return PageMatchResult(batch.arrays["page_gid"].copy(), counts,
+                           participating)
 
 
 def split_payload_pages(arrays, trigger: int = SPLIT_TRIGGER,
@@ -219,9 +373,10 @@ def device_scan_step(core, stream, walk_plen, walk_nn, table, *, irs, dfa,
 
 
 def prepare_patterns(patterns, *, like: bool = False):
-    """(regexes, dfas) for the patterns of one query; raises
-    NotImplementedError for a pattern outside the DFA subset (the
-    reference's host `re` fallback is not ported)."""
+    """(regexes, dfas) for the patterns of one byte-walk query; raises
+    NotImplementedError for a pattern outside the DFA subset (the resident
+    column and the batched scans refuse it, as the reference's do; the
+    one-shot `ScanEngine.scan` takes the host `re` fallback)."""
     pats = [like_to_regex(p) if like else p for p in patterns]
     dfas = []
     for p in pats:
@@ -229,8 +384,8 @@ def prepare_patterns(patterns, *, like: bool = False):
             dfas.append(compile_pattern(p))
         except UnsupportedPattern as e:
             raise NotImplementedError(
-                f"pattern {p!r} is outside the DFA subset; the host `re` "
-                "fallback is not ported") from e
+                f"pattern {p!r} is outside the DFA subset; use "
+                "ScanEngine.scan, which takes the host `re` fallback") from e
     return pats, dfas
 
 

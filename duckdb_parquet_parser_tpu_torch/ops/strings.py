@@ -1,7 +1,9 @@
 """Streaming matcher over raw PLAIN BYTE_ARRAY payloads — plain PyTorch.
 
 Port of `duckdb_parquet_parser_tpu.ops.strings` (`_match_stream_multi`,
-`match_payload_stream`, `match_payload_multi`).  Each lane (one page, or
+`match_payload_stream`, `match_payload_multi`, and the per-value pair
+`string_offsets` / `match_values_by_offset`, plain loops over `cap` /
+`pitch` steps where the reference has `lax.scan`).  Each lane (one page, or
 one split segment) walks its raw value section one byte per step: a 4-byte
 little-endian length prefix, then the value bytes.  Per byte, K matcher
 transitions advance; the state resets at each value start; at each value
@@ -37,6 +39,53 @@ from .bitprog import (
     trace_transition,
 )
 from .regex import substring_chain
+
+
+def string_offsets(payload: torch.Tensor, nn: torch.Tensor, cap: int):
+    """Parses the PLAIN BYTE_ARRAY length prefixes of raw value sections.
+
+    payload: [N, P] u8 (zero-padded); nn: [N] int32 value counts.  Returns
+    (offs [N, cap] int32, the first char byte of each value; lens [N, cap]
+    int32); entries beyond nn are zero.  All pages advance in lockstep, one
+    value a step."""
+    n, p = payload.shape
+    dev = payload.device
+    flat = payload.reshape(-1).to(torch.int32)
+    base = torch.arange(n, dtype=torch.int32, device=dev) * p
+    nn = nn.to(device=dev, dtype=torch.int32)
+    offs = torch.zeros((n, cap), dtype=torch.int32, device=dev)
+    lens = torch.zeros((n, cap), dtype=torch.int32, device=dev)
+    off = base.clone()
+    for k in range(cap):
+        o = off.clamp(0, n * p - 4).long()
+        ln = (flat[o] | (flat[o + 1] << 8) | (flat[o + 2] << 16)
+              | (flat[o + 3] << 24))
+        live = k < nn
+        offs[:, k] = torch.where(live, off - base + 4, 0)
+        lens[:, k] = torch.where(live, ln, 0)
+        off = torch.where(live, off + 4 + ln, off)
+    return offs, lens
+
+
+def match_values_by_offset(payload, offs, lens, table, accept, pitch: int):
+    """Per-value table DFA with the chars gathered from the payload on the
+    fly (`pitch` steps: the longest value; longer values would be cut, so
+    callers size it from the true maximum).  Returns [N, cap] bool
+    accepts."""
+    n, _cap = offs.shape
+    p = payload.shape[1]
+    dev = payload.device
+    tflat = torch.as_tensor(table, dtype=torch.int32).reshape(-1).to(dev)
+    acc = torch.as_tensor(accept).to(dev)
+    flat = payload.reshape(-1).to(torch.int32)
+    gbase = (torch.arange(n, dtype=torch.int32, device=dev) * p)[:, None] + offs
+    top = n * p - 1
+    state = torch.zeros(offs.shape, dtype=torch.int32, device=dev)
+    for j in range(pitch):
+        c = flat[(gbase + j).clamp(0, top).long()]
+        nxt = tflat[(state * 256 + c).long()]
+        state = torch.where(j < lens, nxt, state)
+    return acc[state.long()]
 
 
 def make_bitap_transition(xp, needles: list[bytes]):

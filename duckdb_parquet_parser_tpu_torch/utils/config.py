@@ -19,13 +19,18 @@ class EngineConfig:
     # scan
     max_dfa_states: int = 4096
 
+    # observability
+    profile_dir: str | None = None     # torch.profiler trace output
+
     @classmethod
     def from_env(cls, prefix: str = "DPQ_") -> "EngineConfig":
         cfg = cls()
         for f in fields(cls):
             key = prefix + f.name.upper()
             if key in os.environ:
-                setattr(cfg, f.name, int(os.environ[key]))
+                raw = os.environ[key]
+                is_int = isinstance(getattr(cfg, f.name), int)
+                setattr(cfg, f.name, int(raw) if is_int else raw)
         return cfg
 
 

@@ -1,14 +1,17 @@
 """The port's own copies of the JAX-free layers (duckdb_parquet_parser_tpu_torch/
 ops/regex.py, ops/bitprog.py, ops/strings.make_bitap_transition, host/
-bindings.py, host/writer.py, host/schema.py, utils/config.py and the native
+bindings.py, host/writer.py, host/schema.py, host/assembly.py, host/reader.py,
+utils/config.py, utils/metrics.py, the `dict_ints` fixture and the native
 library built from host/native/) against the reference modules they were
 copied from, over the pattern corpus the port's tests use.  Tolerance 0:
-tables, programs, traced transitions, prescan arrays and file bytes are
-equal."""
+tables, programs, traced transitions, prescan arrays, file bytes and the
+copied sources are equal."""
 
 from __future__ import annotations
 
+import ast
 import enum
+import inspect
 
 import numpy as np
 import pytest
@@ -164,3 +167,74 @@ def test_writers_give_identical_files_and_prescans(tmp_path):
                 np.testing.assert_array_equal(arrays[k], rarrays[k], err_msg=k)
     bindings.lib().dpq_close(h)
     ref_bindings.lib().dpq_close(rh)
+
+
+def _functions(module) -> dict:
+    """{qualified name: source dump without docstrings} of every function
+    and method a module defines."""
+    tree = ast.parse(inspect.getsource(module))
+    out = {}
+
+    def visit(node, prefix):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.ClassDef)):
+                name = prefix + child.name
+                if isinstance(child, ast.FunctionDef):
+                    body = child.body
+                    if (body and isinstance(body[0], ast.Expr)
+                            and isinstance(body[0].value, ast.Constant)
+                            and isinstance(body[0].value.value, str)):
+                        child.body = body[1:] or [ast.Pass()]
+                    out[name] = ast.dump(child)
+                visit(child, name + ".")
+
+    visit(tree, "")
+    return out
+
+
+def test_assembly_and_metrics_are_verbatim_copies():
+    from duckdb_parquet_parser_tpu.host import assembly as ref_assembly
+    from duckdb_parquet_parser_tpu.utils import metrics as ref_metrics
+    from duckdb_parquet_parser_tpu_torch.host import assembly
+    from duckdb_parquet_parser_tpu_torch.utils import metrics
+
+    for mod, ref in ((assembly, ref_assembly), (metrics, ref_metrics)):
+        got, want = _functions(mod), _functions(ref)
+        assert got == want, mod.__name__
+        assert len(want) >= 5
+
+
+# the reader's functions that differ by design: they call the port's tensor
+# decode where the reference calls its xp-generic decode with numpy
+READER_PORTED = {"_materialize_fixed", "_string_positions",
+                 "ParquetReader.read_pages", "ParquetReader._decode_leaf"}
+# and the one helper the port adds: the flatten step that the fixed-width
+# and the delta materialization share
+READER_ADDED = {"_flatten_decoded"}
+
+
+def test_reader_copy_differs_only_where_the_decode_is_called():
+    from duckdb_parquet_parser_tpu.host import reader as ref_reader
+    from duckdb_parquet_parser_tpu_torch.host import reader
+
+    got, want = _functions(reader), _functions(ref_reader)
+    assert set(got) - set(want) == READER_ADDED
+    assert set(want) <= set(got)
+    differing = {name for name in want if got[name] != want[name]}
+    assert differing == READER_PORTED, differing
+    sig = inspect.signature
+    for name in ("read_column", "read_column_by_idx", "read_rows",
+                 "read_pages", "read_table", "prescan", "page_stats",
+                 "column_iterator", "page_iterator"):
+        assert (sig(getattr(reader.ParquetReader, name))
+                == sig(getattr(ref_reader.ParquetReader, name))), name
+
+
+def test_dict_ints_matches_bench(tmp_path, monkeypatch):
+    import bench
+    from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
+
+    monkeypatch.setattr(bench, "CACHE", tmp_path / "bench")
+    want = bench.gen_dict_fixture(3000)
+    got = fx.dict_ints(tmp_path / "port.parquet", 3000)
+    assert got.read_bytes() == want.read_bytes()

@@ -13,7 +13,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-SCRIPT = textwrap.dedent("""
+BLOCK = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "pyarrow", "duckdb_parquet_parser_tpu")
@@ -26,6 +26,9 @@ SCRIPT = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     sys.path.insert(0, {root!r})
+""")
+
+SCRIPT = BLOCK + textwrap.dedent("""
     import duckdb_parquet_parser_tpu_torch as pkg
     from pathlib import Path
     pkg_dir = Path(pkg.__file__).resolve().parent
@@ -70,3 +73,79 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("modules")[1])
     assert n >= 12, proc.stdout
+
+
+DECODE_SCRIPT = BLOCK + textwrap.dedent("""
+    import numpy as np
+
+    from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
+    from duckdb_parquet_parser_tpu_torch.host.schema import ParquetType
+    from duckdb_parquet_parser_tpu_torch.host.writer import (
+        ColumnSpec,
+        ParquetWriter,
+    )
+    from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
+    from duckdb_parquet_parser_tpu_torch.ops.delta import read_delta_column
+
+    path = {path!r}
+    rng = np.random.default_rng(3)
+    k = rng.integers(0, 7, 900) * 1000003
+    valid = rng.random(900) > 0.1
+    words = [b"special requests", b"quick fox", b"", b"specially requested"]
+    s = [words[int(i)] if v else None
+         for i, v in zip(rng.integers(0, 4, 900), valid)]
+    w = ParquetWriter(path, [ColumnSpec("k", ParquetType.INT64, optional=True),
+                             ColumnSpec("x", ParquetType.DOUBLE),
+                             ColumnSpec("s", ParquetType.BYTE_ARRAY,
+                                        optional=True)])
+    x = rng.standard_normal(900)
+    w.write_row_group({{"k": (k, valid.astype(np.uint8)), "x": x, "s": s}})
+    w.close()
+    reader = ParquetReader(path)
+    col = reader.read_column("k")
+    assert np.array_equal(col.valid, valid)
+    assert np.array_equal(col.values[col.valid], k[valid])
+    assert np.array_equal(reader.read_column("x").values.view(np.int64),
+                          x.view(np.int64))
+    rows = reader.read_rows("k", 100, 200)
+    assert np.array_equal(rows.valid, valid[100:200])
+    got = ScanEngine(path).matching_rows("s", "special.*requests",
+                                         device="cpu")
+    want = [i for i, v in enumerate(s) if v == words[0]]
+    assert got.tolist() == want, (got[:8], want[:8])
+
+    delta = ParquetReader({delta_path!r})
+    d = read_delta_column(delta, "v", device="cpu")
+    want = np.load({delta_values!r})
+    assert np.array_equal(d.values, want) and bool(d.valid.all())
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    print("decoded", len(col.values), len(got), len(d.values))
+""")
+
+
+def test_port_decodes_without_jax(tmp_path):
+    """`read_column`, `read_rows`, `matching_rows` and `read_delta_column`
+    with the JAX package and pyarrow blocked; the DELTA_BINARY_PACKED file
+    is written here, by pyarrow, before the blocked interpreter starts."""
+    import numpy as np
+    import pytest
+
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(8)
+    values = np.cumsum(rng.integers(-2**40, 2**40, 5000)).astype(np.int64)
+    delta_path = tmp_path / "delta.parquet"
+    pq.write_table(pa.table({"v": pa.array(values, pa.int64())}),
+                   str(delta_path), use_dictionary=False, compression="none",
+                   column_encoding={"v": "DELTA_BINARY_PACKED"},
+                   data_page_size=4096)
+    np.save(tmp_path / "values.npy", values)
+    script = DECODE_SCRIPT.format(
+        root=str(ROOT), path=str(tmp_path / "t.parquet"),
+        delta_path=str(delta_path), delta_values=str(tmp_path / "values.npy"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split()[:1] == ["decoded"], proc.stdout

@@ -21,15 +21,29 @@ on the card as on the CPU; 2M seeded DELTA_BINARY_PACKED values decode to
 their seed; and the block scans (`scan_batched`, `scan_streaming`), the
 row-level matches (`matching_rows`) and the fused single step
 (`single_chip_forward`) equal the native scan.
+Then the front door and the sharded paths: the command line (`cli.main`:
+file info, a regex scan on the card that prints what the native scan
+prints, `index ... l_comment` with its 18767 chunks); one rank over NCCL on
+the card at full width (`ScanEngine(mesh=...)`, `distributed_decode`,
+`distributed_index_build` in both exchange modes, an elastic scan) against
+the native scan, `read_column` and `build_index_for_column`; and four ranks
+over gloo that share the card, started as child processes of this script on
+a 500,000-row file, each holding its results against the one-rank answers;
+then `python -m duckdb_parquet_parser_tpu_torch.launch` (`scan`, `index`,
+`scaling-bench`) as three one-rank NCCL processes whose JSON lines must
+agree with the sharded phase.
 Each kernel is timed at the main path's shapes beside its plain version,
 its bound (the larger of bytes over the card's memory rate and int32
 operations over the card's int32 rate, for the work these inputs need) and,
-for the dictionary gather, the one PyTorch call that computes the same.
+for the dictionary gather, the one PyTorch call that computes the same;
+the gather's inputs at the emission decode's shapes are the tensors the
+index build itself passed to the wrapper, recorded in those runs.
 The script imports only the port (`duckdb_parquet_parser_tpu_torch`), which
 builds its own native host library and kernels from this checkout, and
 refuses any import of JAX or of the JAX package.
 
 Usage: python3 chip_smoke.py      (needs one CUDA device; no arguments)
+       (`--shard-rank R JOB.json` is how it starts its own child ranks)
 
 Prints, in order: the card, build seconds, per-phase results, a JSON line
 {"kernels": [...]}, the card's name and power limit as nvidia-smi reports
@@ -40,10 +54,12 @@ Fixtures and builds go under build/ in this checkout.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.abc
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -76,6 +92,10 @@ MAIN_ROWS = 2_000_000
 DECODE_COLUMNS = [("lineitem", "l_quantity"), ("lineitem", "l_extendedprice"),
                   ("lineitem", "l_tax"), ("dict_ints", "k")]
 DELTA_PAGES, DELTA_VALUES_PER_PAGE = 2000, 1000
+# the sharded paths' second scale: four ranks share the card
+SHARD_ROWS, SHARD_RANKS, FAILED_RANK = 500_000, 4, 2
+CHILD_TIMEOUT_S = 420
+L_COMMENT_CHUNKS = 18767  # chunks of the 2M-row l_comment at 4096 bytes
 K1_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/stream_matcher.cu.in"
 K2_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/dict_lookup.cu"
 K1_REPLACES = "duckdb_parquet_parser_tpu/ops/pallas/stream_matcher.py:94"
@@ -417,15 +437,30 @@ def assert_same(res, eng, column, pattern, negate):
     return int(np.sum(res.match_counts)), int(np.sum(res.match_counts == 0))
 
 
+NOT_PROFILED = ("not measured: the profiler recorded no device events in "
+                "three tries")
+
+
 def device_profile(fn, trace: Path):
     """One call of `fn` under torch.profiler after a warm-up: (wall ms
     under the profiler, device busy ms, kernel launches, {kernel: ms}).
     Busy is the union of kernel / memcpy / memset intervals in the
-    exported trace; None when the profiler recorded no device events."""
+    exported trace.  The profiler now and then loses one profile's device
+    events, so a profile without any is tried again, three in all; busy is
+    None when all three recorded none.  A profile is a measurement: the
+    run's checks (results, launch counters) do not hang on it."""
+    fn()
+    for _ in range(3):
+        found = _profile_once(fn, trace)
+        if found[1] is not None:
+            break
+    return found
+
+
+def _profile_once(fn, trace: Path):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -537,6 +572,27 @@ def run_main_path(device, rows, dict_rows_per_rg, dict_distinct,
     return report, launches, col, dcol, eng, deng
 
 
+def reset_launches() -> None:
+    """Sets both wrappers' launch counters to 0."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dict_lookup,
+        stream_matcher,
+    )
+
+    stream_matcher.launches = 0
+    dict_lookup.launches = 0
+
+
+def read_launches() -> dict:
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dict_lookup,
+        stream_matcher,
+    )
+
+    return {"stream_matcher": stream_matcher.launches,
+            "dict_lookup": dict_lookup.launches}
+
+
 def query_launches(fn) -> dict:
     """Kernel launches of one call of `fn`, from the wrappers' counters."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
@@ -548,6 +604,29 @@ def query_launches(fn) -> dict:
     fn()
     return {"stream_matcher": stream_matcher.launches - before[0],
             "dict_lookup": dict_lookup.launches - before[1]}
+
+
+@contextlib.contextmanager
+def recorded_lookups():
+    """Notes the (table, gidx) of every `dict_lookup` call made inside: the
+    module's wrapper is replaced by one that keeps its arguments and calls
+    on, so the launches, the counts and the results stay the path's own.
+    The timings below take their inputs from here, not from a rebuilt
+    guess of what the path passes."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dict_lookup
+
+    calls = []
+    real = dict_lookup.dict_lookup
+
+    def noting(planes, gidx):
+        calls.append((planes, gidx))
+        return real(planes, gidx)
+
+    dict_lookup.dict_lookup = noting
+    try:
+        yield calls
+    finally:
+        dict_lookup.dict_lookup = real
 
 
 def best_of(fns: dict, reps: int, rounds: int = 6) -> dict:
@@ -707,8 +786,7 @@ def profile_line(label: str, fn) -> str:
     _wall, busy, n, by_name = device_profile(
         fn, ROOT / "build" / "profile" / f"{label}.json")
     if busy is None:
-        raise AssertionError(f"profile {label}: the profiler recorded no "
-                             "device events")
+        return NOT_PROFILED
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return (f"{n} kernel launches, {busy:.4f} ms device busy under the "
             "profiler; top: "
@@ -846,12 +924,10 @@ def run_decode_path(device, rows, fixtures: Path, ops_per_s):
             wall, busy, n, _by_name = device_profile(
                 lambda: _materialize_fixed(batch, device=device),
                 ROOT / "build" / "profile" / "materialize_k.json")
-            if busy is None:
-                raise AssertionError("profile materialize_k: the profiler "
-                                     "recorded no device events")
-            log(f"profile _materialize_fixed(k) on the card: wall {wall:.3f} "
-                f"ms, device busy {busy:.4f} ms "
-                f"({100 * (1 - busy / wall):.2f}% idle), {n} kernel launches")
+            log("profile _materialize_fixed(k) on the card: " + (
+                NOT_PROFILED if busy is None else
+                f"wall {wall:.3f} ms, device busy {busy:.4f} ms "
+                f"({100 * (1 - busy / wall):.2f}% idle), {n} kernel launches"))
             dn = table.shape[1]
             idx = decode.fit_columns(core["idx_vals"], batch.vmax, -1).to(
                 torch.int32)
@@ -862,9 +938,33 @@ def run_decode_path(device, rows, fixtures: Path, ops_per_s):
     return lookup_inputs
 
 
-def time_decode_lookup(table, gidx, ops_per_s) -> dict:
-    """K2's gather entry at the dictionary decode's shape beside its plain
-    version, the one PyTorch call and its bound."""
+def queued_ms(fn, reps: int = 50) -> float:
+    """ms per call of `fn` on the card alone: the calls are enqueued behind
+    a few ms of other work (three 8192-wide half-precision products), so
+    the host runs ahead, its launch cost hides, and the time between the
+    two events is the device's."""
+    import torch
+
+    a = torch.ones(8192, 8192, device="cuda", dtype=torch.float16)
+    b = torch.empty_like(a)
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        torch.mm(a, a, out=b)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_decode_lookup(table, gidx, ops_per_s, prefix="decode",
+                       where="inside the decode of k") -> dict:
+    """K2's gather entry at a caller's shape (the dictionary decode's, the
+    index build's emission decode's) beside its plain version, the one
+    PyTorch call and its bound; the keys carry `prefix`."""
     import torch
 
     from duckdb_parquet_parser_tpu_torch.ops.kernels import dict_lookup
@@ -875,19 +975,25 @@ def time_decode_lookup(table, gidx, ops_per_s) -> dict:
         "plain": lambda: dict_lookup.dict_lookup_plain(table, gidx)}, 50)
     got = dict_lookup.dict_lookup(table, gidx)
     err = int((got - dict_lookup.dict_lookup_plain(table, gidx)).abs().max())
+    on_card = min(queued_ms(lambda: dict_lookup.dict_lookup(table, gidx))
+                  for _ in range(3))
     moved = nbytes(table, gidx, got)
     b_ms, b_by = bound(moved, gidx.numel() * table.shape[0], ops_per_s)
-    log(f"K2 gather entry inside the decode of k, gidx {tuple(gidx.shape)}, "
+    log(f"K2 gather entry {where}, gidx {tuple(gidx.shape)}, "
         f"P={table.shape[0]}, DN={table.shape[1]}: kernel "
         f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, the PyTorch call "
         f"table[:, gidx.long()] {t['library']:.4f} ms per call (least of 6 "
-        f"rounds of 50); {moved} bytes moved: bound {b_ms:.5f} ms by {b_by} "
-        f"({100 * b_ms / t['kernel']:.1f}% of the kernel's time)")
-    return {"decode_shape": f"gidx {list(gidx.shape)}, P={table.shape[0]}, "
-                            f"DN={table.shape[1]}",
-            "decode_max_abs_err": err, "decode_ms": t["kernel"],
-            "decode_plain_ms": t["plain"], "decode_library_ms": t["library"],
-            "decode_bound_ms": b_ms, "decode_bound_by": b_by}
+        f"rounds of 50); on the card alone {on_card:.4f} ms per call (50 "
+        f"calls queued behind other work, least of 3); {moved} bytes moved: "
+        f"bound {b_ms:.5f} ms by {b_by} ({100 * b_ms / t['kernel']:.1f}% of "
+        f"a call, {100 * b_ms / on_card:.1f}% of the time on the card)")
+    return {f"{prefix}_shape": f"gidx {list(gidx.shape)}, "
+                               f"P={table.shape[0]}, DN={table.shape[1]}",
+            f"{prefix}_max_abs_err": err, f"{prefix}_ms": t["kernel"],
+            f"{prefix}_device_ms": on_card,
+            f"{prefix}_plain_ms": t["plain"],
+            f"{prefix}_library_ms": t["library"],
+            f"{prefix}_bound_ms": b_ms, f"{prefix}_bound_by": b_by}
 
 
 def check_small_decodes(device, fixtures: Path):
@@ -1138,7 +1244,537 @@ def run_block_scans(device, eng, deng, fixtures: Path):
         "resident scan")
 
 
+def pattern_tuples():
+    """Every pattern tuple whose stream-matcher kernel is built up front,
+    in one nvcc run; a child rank that asks for the same list loads that
+    library and builds nothing."""
+    return ([(p,) for p in STREAM_PATTERNS + BENCH_PATTERNS + DICT_PATTERNS
+             + [EXAMPLE_PATTERN]] + [FUSED, tuple(BENCH_PATTERNS[:3])])
+
+
+def run_cli(path: Path):
+    """The port's command line on the 2M-row file: file info, a regex scan
+    through the device pipeline on the card against the native scan's
+    output, and the chunked index of l_comment."""
+    import contextlib
+    import io
+
+    from duckdb_parquet_parser_tpu_torch import cli
+
+    def call(*argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(list(argv))
+        if rc != 0:
+            raise AssertionError(f"cli {argv} returned {rc}")
+        return out.getvalue(), (time.perf_counter() - t0) * 1e3
+
+    info, ms = call(str(path))
+    if "Total data pages:" not in info or "l_comment" not in info:
+        raise AssertionError("cli: the file info lacks its lines")
+    log(f"cli <file>: {len(info.splitlines())} lines in {ms:.1f} ms")
+    scan = ["--regex-column", "l_comment", "--regex", BENCH_PATTERNS[0]]
+    launches = query_launches(lambda: call(str(path), *scan, "--engine",
+                                           "torch"))
+    card, card_ms = call(str(path), *scan, "--engine", "torch")
+    native, native_ms = call(str(path), *scan, "--engine", "native")
+    if card != native or not card.startswith("Scanned column 'l_comment'"):
+        raise AssertionError("cli: --engine torch on the card prints other "
+                             "bytes than --engine native")
+    if launches["stream_matcher"] < 1:
+        raise AssertionError("cli --engine torch did not launch K1")
+    log(f"cli regex scan of l_comment ~ {BENCH_PATTERNS[0]!r}: --engine "
+        f"torch (card) {card_ms:.1f} ms, --engine native {native_ms:.1f} ms, "
+        f"the same {len(card.splitlines())} lines; launches {launches}")
+    index, ms = call("index", str(path), "l_comment")
+    want = f"Total tuples: {MAIN_ROWS}\nTotal chunks: {L_COMMENT_CHUNKS}\n"
+    if index != want:
+        raise AssertionError(f"cli index printed {index!r}, not {want!r}")
+    log(f"cli index <file> l_comment: {index.split()[2]} tuples, "
+        f"{index.split()[5]} chunks in {ms:.1f} ms")
+
+
+def sharded_answers(mesh, files: dict, fail):
+    """The sharded paths on `mesh`, every rank making the same calls:
+    `ScanEngine(mesh=...).scan` of l_comment and city, an elastic scan of
+    each whose hook fails rank `fail` (nobody when None), the index build
+    of both columns in both exchange modes (with `fail`, once more with a
+    hook that fails that rank in block 0), and the sharded decode of
+    `files["decode"]` (path, column).  Returns ({name: array}, the results
+    in a form that does not depend on the number of ranks; [log lines];
+    the (table, gidx) that the emission decode of city gave `dict_lookup`
+    on this rank in its first block)."""
+    import numpy as np
+
+    from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
+    from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
+    from duckdb_parquet_parser_tpu_torch.parallel.index_build import (
+        distributed_index_build,
+    )
+    from duckdb_parquet_parser_tpu_torch.parallel.partition import pad_pages
+    from duckdb_parquet_parser_tpu_torch.parallel.pipeline import (
+        distributed_decode,
+    )
+    from duckdb_parquet_parser_tpu_torch.utils.config import (
+        EngineConfig,
+        set_config,
+    )
+    from duckdb_parquet_parser_tpu_torch.utils.metrics import get_metrics
+
+    out, lines = {}, []
+    held = []
+    emission_inputs = None
+
+    def counted(fn):
+        """(value, ms, launches) of one call."""
+        t0 = time.perf_counter()
+        launches = query_launches(lambda: held.append(fn()))
+        return held.pop(), (time.perf_counter() - t0) * 1e3, launches
+
+    def by_gid(res):
+        keep = res.page_gid >= 0
+        order = np.argsort(res.page_gid[keep], kind="stable")
+        return {"page_gid": res.page_gid[keep][order],
+                "match_counts": res.match_counts[keep][order],
+                "value_counts": res.value_counts[keep][order],
+                "totals": np.asarray(res.totals)}
+
+    def index_arrays(res):
+        entries = np.concatenate(res.received)
+        return {"tuple_to_chunk": res.index.tuple_to_chunk,
+                "chunk_starts": res.index.chunk_starts,
+                "chunk_of_entry": res.index.chunk_of_entry,
+                "entries": entries[np.lexsort(entries.T[::-1])]}
+
+    for name, column, pat in (("lineitem", "l_comment", BENCH_PATTERNS[0]),
+                              ("city", "city", DICT_PATTERNS[0])):
+        eng = ScanEngine(str(files[name]), mesh=mesh)
+        res, ms, launches = counted(lambda: eng.scan(column, pat))
+        clean = by_gid(res)
+        for k, v in clean.items():
+            out[f"scan/{column}/{k}"] = v
+        lines.append(
+            f"scan {column} ~ {pat!r}: {ms:.1f} ms, {len(res.page_gid)} "
+            f"padded pages, totals {res.totals.tolist()}, launches "
+            f"{launches}")
+        kernel = "stream_matcher" if column == "l_comment" else "dict_lookup"
+        if launches[kernel] < 1:
+            raise AssertionError(f"sharded scan of {column}: {kernel} was "
+                                 "not launched")
+
+        def fail_once(result, rnd):
+            return {fail} if fail is not None and rnd == 0 else ()
+
+        res, ms, launches = counted(
+            lambda: eng.scan(column, pat, fault_hook=fail_once))
+        for k, v in by_gid(res).items():
+            if not np.array_equal(v, clean[k]):
+                raise AssertionError(f"elastic scan of {column}: {k} differs "
+                                     "from the clean scan")
+        want = [] if fail is None else [fail]
+        if res.elastic_report["failed"] != want:
+            raise AssertionError(f"elastic scan of {column}: report "
+                                 f"{res.elastic_report}")
+        lines.append(f"elastic scan {column} (hook fails "
+                     f"{'nobody' if fail is None else f'rank {fail}'}): "
+                     f"{ms:.1f} ms, report {res.elastic_report}, launches "
+                     f"{launches}; equal to the clean scan")
+
+        built = {}
+        for mode in ("ragged", "padded"):
+            set_config(EngineConfig(exchange_mode=mode))
+            try:
+                with recorded_lookups() as lookups:
+                    res, ms, launches = counted(
+                        lambda: distributed_index_build(mesh, eng.reader,
+                                                        column))
+            finally:
+                set_config(None)
+            if len(lookups) != launches["dict_lookup"]:
+                raise AssertionError(
+                    f"index build {column}: {len(lookups)} dict_lookup calls "
+                    f"but {launches['dict_lookup']} launches")
+            if lookups and emission_inputs is None:
+                emission_inputs = lookups[0]
+            built[mode] = index_arrays(res)
+            for k, v in built[mode].items():
+                out[f"index/{column}/{mode}/{k}"] = v
+            stages = get_metrics().summary()
+            emis = stages["index_emissions"][-1]
+            exch = stages["index_exchange"][-1]
+            n_entries = sum(len(r) for r in res.received)
+            lines.append(
+                f"index build {column} ({mode}): {ms:.1f} ms, of which the "
+                f"sharded emission decode {emis['seconds'] * 1e3:.1f} ms "
+                f"({emis['pages']} pages) and the exchange "
+                f"{exch['seconds'] * 1e3:.1f} ms ({exch['blocks']} blocks, "
+                f"{res.shuffle_bytes} bytes, capacity "
+                f"{res.exchange_capacity}); {n_entries} entries, "
+                f"{len(res.index.chunk_starts)} chunks, planned slots over "
+                f"entries {res.exchange_planned_slots / max(n_entries, 1):.4f}"
+                f", skew {res.skew_factor:.4f}, launches {launches}")
+            pages = emis["pages"]
+            blocks = -(-pages // 8192)
+            want_k2 = blocks if column == "city" else 0
+            if launches["dict_lookup"] < want_k2 or (
+                    column == "l_comment" and launches["dict_lookup"]):
+                raise AssertionError(
+                    f"index build {column}: dict_lookup launched "
+                    f"{launches['dict_lookup']} times over {blocks} blocks")
+        for k in ("tuple_to_chunk", "chunk_starts", "chunk_of_entry",
+                  "entries"):
+            if not np.array_equal(built["ragged"][k], built["padded"][k]):
+                raise AssertionError(f"index build {column}: {k} differs "
+                                     "between the exchange modes")
+        if fail is not None:
+            def fail_block(blk, lens, emit):
+                return {fail} if blk == 0 else ()
+
+            res, ms, launches = counted(lambda: distributed_index_build(
+                mesh, eng.reader, column, fault_hook=fail_block))
+            for k, v in index_arrays(res).items():
+                if not np.array_equal(v, built["ragged"][k]):
+                    raise AssertionError(f"elastic index build {column}: "
+                                         f"{k} differs from the clean build")
+            lines.append(f"elastic index build {column} (rank {fail} fails in "
+                         f"block 0): {ms:.1f} ms, launches {launches}; equal "
+                         "to the clean build")
+
+    path, column = files["decode"]
+    reader = ParquetReader(str(path))
+    batch = reader.prescan(column)
+    (planes, nonnull, checksum), ms, launches = counted(
+        lambda: distributed_decode(mesh, pad_pages(batch, 8 * mesh.size)))
+    if launches["dict_lookup"] != 1:
+        raise AssertionError(f"sharded decode of {column}: dict_lookup "
+                             f"launched {launches['dict_lookup']} times")
+    n = batch.n_pages
+    out[f"decode/{column}/nonnull"] = nonnull[:n]
+    out[f"decode/{column}/checksum"] = np.int64(checksum)
+    for j, plane in enumerate(planes):
+        out[f"decode/{column}/plane{j}"] = plane[:n]
+    lines.append(f"sharded decode of {column}: {ms:.1f} ms, {n} pages x "
+                 f"{batch.vmax}, checksum {checksum}, launches {launches}")
+    return out, lines, emission_inputs
+
+
+def run_sharded_one_rank(eng, deng, fixtures: Path):
+    """One rank over NCCL on the card at full width, held against the
+    native exact scan, `read_column` and `build_index_for_column`; then the
+    same calls on the 500,000-row file, whose answers the four child ranks
+    are held against.  The launch counts of either pass are read from
+    counters set to 0 just before it.  Returns a dict: those `answers`,
+    their `files`, the `launches` of the full-width pass and of the
+    500,000-row pass (`launches_small`), and the full-width emission
+    decode's `emission_inputs`, the full-width `got` results."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
+    from duckdb_parquet_parser_tpu_torch.ops.index import (
+        build_index_for_column,
+    )
+    from duckdb_parquet_parser_tpu_torch.parallel.mesh import make_mesh
+    from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
+
+    mesh = make_mesh("cuda:0", "nccl")
+    log(f"mesh: rank {mesh.rank} of {mesh.size} on {mesh.device} over "
+        f"{mesh.backend}")
+    files = {"lineitem": fixtures / f"lineitem_{MAIN_ROWS}.parquet",
+             "city": Path(deng.reader._path),
+             "decode": (fixtures / f"dict_ints_{MAIN_ROWS}.parquet", "k")}
+    t0 = time.perf_counter()
+    reset_launches()
+    got, lines, emission_inputs = sharded_answers(mesh, files, fail=None)
+    launches = read_launches()
+    for line in lines:
+        log("one rank, nccl, full width: " + line)
+    log(f"one rank, nccl, full width: launches of the whole pass {launches}")
+    for e, column, pat in ((eng, "l_comment", BENCH_PATTERNS[0]),
+                           (deng, "city", DICT_PATTERNS[0])):
+        ref = e.cold_scan(column, pat, exact_counts=True, stats_prune=False)
+        order = np.argsort(ref.page_gid, kind="stable")
+        if not (np.array_equal(got[f"scan/{column}/page_gid"],
+                               ref.page_gid[order])
+                and np.array_equal(got[f"scan/{column}/match_counts"],
+                                   ref.match_counts[order])
+                and np.array_equal(got[f"scan/{column}/value_counts"],
+                                   ref.value_counts[order])
+                and got[f"scan/{column}/totals"].tolist() == [
+                    int(ref.match_counts.sum()), int(ref.value_counts.sum())]):
+            raise AssertionError(f"sharded scan of {column} disagrees with "
+                                 "the native host scan")
+        idx = build_index_for_column(e.reader, column)
+        entries = np.stack([idx.positions, idx.lens, idx.chunk_of_entry],
+                           axis=1)
+        for mode in ("ragged", "padded"):
+            for k, want in (("tuple_to_chunk", idx.tuple_to_chunk),
+                            ("chunk_starts", idx.chunk_starts),
+                            ("chunk_of_entry", idx.chunk_of_entry),
+                            ("entries", entries)):
+                if not np.array_equal(got[f"index/{column}/{mode}/{k}"],
+                                      want):
+                    raise AssertionError(
+                        f"sharded index build of {column} ({mode}): {k} "
+                        "differs from build_index_for_column")
+    if len(got["index/l_comment/ragged/chunk_starts"]) != L_COMMENT_CHUNKS:
+        raise AssertionError("the sharded index of l_comment has "
+                             f"{len(got['index/l_comment/ragged/chunk_starts'])}"
+                             " chunks")
+    path, column = files["decode"]
+    reader = ParquetReader(str(path))
+    batch = reader.prescan(column)
+    values, valid = flatten_planes(
+        batch, [torch.from_numpy(got[f"decode/{column}/plane{j}"])
+                for j in range(2)],
+        torch.from_numpy(got[f"decode/{column}/nonnull"]))
+    same_column("sharded decode of k", values, valid,
+                reader.read_column(column))
+    log(f"one rank, nccl, full width: all equal to the native scan, "
+        f"read_column and build_index_for_column "
+        f"({time.perf_counter() - t0:.1f} s with the checks)")
+
+    t0 = time.perf_counter()
+    small = fx.lineitem(fixtures / f"lineitem_{SHARD_ROWS}.parquet",
+                        SHARD_ROWS)
+    shard_files = {"lineitem": small, "city": files["city"],
+                   "decode": (small, "l_quantity")}
+    log(f"fixture of {SHARD_ROWS} rows ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    answers, lines, _inputs = sharded_answers(mesh, shard_files, fail=None)
+    launches_small = read_launches()
+    for line in lines:
+        log(f"one rank, nccl, {SHARD_ROWS} rows: " + line)
+    log(f"one rank, nccl, {SHARD_ROWS} rows: launches of the whole pass "
+        f"{launches_small}")
+    return {"answers": answers, "files": shard_files, "launches": launches,
+            "launches_small": launches_small, "got": got,
+            "emission_inputs": emission_inputs}
+
+
+def run_child_ranks(answers: dict, shard_files: dict, work: Path):
+    """Four ranks over gloo that share the card, as child processes of
+    this script, every kernel and the native library built before.  Each
+    holds its results against `answers`; a non-zero exit or a rank that
+    outlives its timeout fails the run."""
+    import numpy as np
+
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.glob("*"):
+        old.unlink()
+    np.savez(work / "answers.npz", **answers)
+    job = work / "job.json"
+    job.write_text(json.dumps({
+        "store": str(work / "store"), "answers": str(work / "answers.npz"),
+        "out": str(work / "rank"),
+        "files": {k: ([str(v[0]), v[1]] if isinstance(v, tuple) else str(v))
+                  for k, v in shard_files.items()}}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+         str(rank), str(job)], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(SHARD_RANKS)]
+    try:
+        ends = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (_out, err)) in enumerate(zip(procs, ends)):
+        if p.returncode != 0:
+            raise AssertionError(f"child rank {rank} exited with "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+    wall = time.perf_counter() - t0
+    reports = [json.loads((work / f"rank.{rank}.json").read_text())
+               for rank in range(SHARD_RANKS)]
+    for line in reports[0]["lines"]:
+        log(f"{SHARD_RANKS} ranks, gloo, one card, {SHARD_ROWS} rows: "
+            + line)
+    for rank, rep in enumerate(reports):
+        log(f"rank {rank}: {rep['compared']} arrays equal to the one-rank "
+            f"answers, launches {rep['launches']}, {rep['seconds']:.1f} s "
+            "after the group formed")
+        for name, n in rep["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"rank {rank}: {name} was not launched")
+    log(f"{SHARD_RANKS} child ranks done in {wall:.1f} s of wall clock")
+    return reports
+
+
+def child_rank(rank: int, job_path: str) -> int:
+    """One of the four ranks that share the card (see run_child_ranks)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    setup_environment()
+    job = json.loads(Path(job_path).read_text())
+    from duckdb_parquet_parser_tpu_torch.ops import strings
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dict_lookup,
+        stream_matcher,
+    )
+    from duckdb_parquet_parser_tpu_torch.parallel.mesh import (
+        GROUP_TIMEOUT,
+        make_mesh,
+    )
+
+    n_so = len(list((ROOT / "build" / "torch_kernels").glob("*.so")))
+    stream_matcher.prepare([tuple(strings.pattern_ir(p) for p in t)
+                            for t in pattern_tuples()])
+    dict_lookup.prepare()
+    if len(list((ROOT / "build" / "torch_kernels").glob("*.so"))) != n_so:
+        raise AssertionError("a child rank built a kernel: the ranks must "
+                             "find every library built")
+    dist.init_process_group("gloo", init_method=f"file://{job['store']}",
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=GROUP_TIMEOUT)
+    mesh = make_mesh("cuda:0", "gloo")
+    files = {k: (tuple(v) if isinstance(v, list) else v)
+             for k, v in job["files"].items()}
+    stream_matcher.launches = 0
+    dict_lookup.launches = 0
+    t0 = time.perf_counter()
+    got, lines, emission_inputs = sharded_answers(mesh, files,
+                                                  fail=FAILED_RANK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with np.load(job["answers"]) as want:
+        if sorted(want.files) != sorted(got):
+            raise AssertionError(f"rank {rank}: other results than one rank")
+        for k in want.files:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"rank {rank}: {k} differs from the "
+                                     "one-rank answer")
+        compared = len(want.files)
+    table, gidx = emission_inputs
+    if rank == 0:  # the only rank whose city shard holds real pages
+        np.savez(f"{job['out']}.emission.npz", table=table.cpu().numpy(),
+                 gidx=gidx.cpu().numpy())
+    Path(f"{job['out']}.{rank}.json").write_text(json.dumps({
+        "lines": lines, "compared": compared, "seconds": seconds,
+        "emission_gidx": list(gidx.shape),
+        "launches": {"stream_matcher": stream_matcher.launches,
+                     "dict_lookup": dict_lookup.launches}}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_launch_entry_points(path: Path, got: dict, card: str):
+    """`python -m duckdb_parquet_parser_tpu_torch.launch` as a user starts
+    it, one rank over NCCL on the card, three child processes at once: a
+    `scan` of l_comment whose group forms from DPQ_COORDINATOR, an `index`
+    of l_comment whose group forms from torchrun's variables (LOCAL_RANK
+    picks the card), and a short `scaling-bench` with neither (`make_mesh`
+    forms its group of one).  Each one's JSON line is held against the
+    one-rank results `got` of the sharded phase on the same file."""
+    mod = "duckdb_parquet_parser_tpu_torch.launch"
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("DPQ_") or k == "DPQ_BUILD_CACHE"}
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "LOCAL_RANK"):
+        base.pop(k, None)
+    jobs = {
+        "scan": (["scan", str(path), "l_comment", BENCH_PATTERNS[0]],
+                 {"DPQ_COORDINATOR": f"127.0.0.1:{free_port()}",
+                  "DPQ_NUM_PROCESSES": "1", "DPQ_PROCESS_ID": "0"}),
+        "index": (["index", str(path), "l_comment"],
+                  {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(free_port())}),
+        "scaling-bench": (["scaling-bench", "--reps", "3"], {}),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", mod, *argv], cwd=str(ROOT),
+        env={**base, **env}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, (argv, env) in jobs.items()}
+    try:
+        ends = {name: p.communicate(timeout=CHILD_TIMEOUT_S)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    found = {}
+    for name, p in procs.items():
+        out, err = ends[name]
+        if p.returncode != 0:
+            raise AssertionError(f"launch {name} exited with "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+        formed = "no" if name == "scaling-bench" else "yes"
+        want = (f"[launch] processes=1 (group={formed}) device=cuda:0 "
+                "backend=nccl")
+        if want not in err:
+            raise AssertionError(f"launch {name}: its first line is not "
+                                 f"{want!r}:\n{err[-2000:]}")
+        lines = out.strip().splitlines()
+        if not lines:
+            raise AssertionError(f"launch {name} printed nothing")
+        # the result is the last line: a backend may print a banner first
+        found[name] = json.loads(lines[-1])
+        log(f"launch {name} (one rank, nccl, cuda:0, group={formed}): "
+            f"{lines[-1]}")
+
+    scan = found["scan"]
+    counts = got["scan/l_comment/match_counts"]
+    totals = got["scan/l_comment/totals"].tolist()
+    want = {"cmd": "scan", "devices": 1, "processes": 1,
+            "surviving_pages": int((counts > 0).sum()),
+            "total_matches": totals[0], "total_values": totals[1]}
+    pad = scan.pop("pages") - len(counts)
+    if scan != want or not 0 <= pad < 8:
+        raise AssertionError(f"launch scan printed {scan} (+{pad} pad "
+                             f"pages), not {want}")
+    index = found["index"]
+    want = {"cmd": "index", "devices": 1, "processes": 1,
+            "tuples": len(got["index/l_comment/ragged/entries"]),
+            "chunks": L_COMMENT_CHUNKS, "exchange_mode": "ragged"}
+    if ({k: index.get(k) for k in want} != want or index["skew"] != 1.0
+            or not 1.0 <= index["capacity_ratio"] < 1.2):
+        raise AssertionError(f"launch index printed {index}, not {want}")
+    bench = found["scaling-bench"]
+    rows = bench["table"]
+    if (bench["metric"] != "scan_scaling" or bench["platform"] != "gpu"
+            or card.split(",")[0] not in bench["note"]
+            or [r["devices"] for r in rows] != [1]
+            or rows[0]["efficiency_wall"] != 1.0
+            or rows[0]["rows_per_s"] <= 0
+            or set(rows[0]) != {"devices", "rows_per_s", "efficiency_wall",
+                                "efficiency_compute", "shard_value_skew"}):
+        raise AssertionError(f"launch scaling-bench printed {bench}")
+    log(f"the three launch entry points agree with the sharded phase "
+        f"({time.perf_counter() - t0:.1f} s of wall clock, started "
+        "together)")
+
+
+def setup_environment() -> None:
+    """What the parent and its child ranks share: JAX refused, the
+    checkout importable, the native library's cache and compiler."""
+    sys.meta_path.insert(0, _NoJax())
+    sys.path.insert(0, str(ROOT))
+    os.environ.setdefault("DPQ_BUILD_CACHE", str(ROOT / "build" / "native"))
+    # The native host library must link the shared libstdc++: a CXX that
+    # links it statically into the library (some toolchain wrappers do)
+    # makes its iostreams crash once loaded beside the interpreter's own
+    # libstdc++.
+    os.environ["CXX"] = "g++"
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1148,14 +1784,9 @@ def main() -> int:
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
-    sys.meta_path.insert(0, _NoJax())
-    sys.path.insert(0, str(ROOT))
-    os.environ.setdefault("DPQ_BUILD_CACHE", str(ROOT / "build" / "native"))
-    # The native host library must link the shared libstdc++: a CXX that
-    # links it statically into the library (some toolchain wrappers do)
-    # makes its iostreams crash once loaded beside the interpreter's own
-    # libstdc++.
-    os.environ["CXX"] = "g++"
+    if sys.argv[1:2] == ["--shard-rank"]:
+        return child_rank(int(sys.argv[2]), sys.argv[3])
+    setup_environment()
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1175,8 +1806,7 @@ def main() -> int:
     lib = host_build.build_library()
     log(f"native host library: {time.perf_counter() - t0:.1f} s "
         f"({lib.name})")
-    tuples = ([(p,) for p in STREAM_PATTERNS + BENCH_PATTERNS + DICT_PATTERNS
-               + [EXAMPLE_PATTERN]] + [FUSED, tuple(BENCH_PATTERNS[:3])])
+    tuples = pattern_tuples()
     t0 = time.perf_counter()
     stream_matcher.prepare([tuple(strings.pattern_ir(p) for p in t)
                             for t in tuples])
@@ -1241,8 +1871,9 @@ def main() -> int:
         wall, busy, n, by_name = device_profile(
             fn, ROOT / "build" / "profile" / f"{label}.json")
         if busy is None:
-            raise AssertionError(f"profile {label}: the profiler recorded "
-                                 "no device events")
+            log(f"profile {label} (one warm query under torch.profiler): "
+                + NOT_PROFILED)
+            continue
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         k1_dev = sum(v for k, v in by_name.items()
                      if k.startswith("dpq_stream_"))
@@ -1260,22 +1891,93 @@ def main() -> int:
     k1, k2 = time_kernels(col, dcol, device, ops_per_s)
     k2.update(time_decode_lookup(k_decode["table"], k_decode["gidx"],
                                  ops_per_s))
+    # the front door and the sharded paths, counted apart again (after the
+    # profiles: the profiler loses device events once the process group
+    # and the child ranks have been on the card)
+    reset_launches()
+    t0 = time.perf_counter()
+    run_cli(fixtures / f"lineitem_{MAIN_ROWS}.parquet")
+    cli_launches = read_launches()
+    t1 = time.perf_counter()
+    one = run_sharded_one_rank(eng, deng, fixtures)
+    sharded_launches = one["launches"]
+    t2 = time.perf_counter()
+    child_reports = run_child_ranks(one["answers"], one["files"],
+                                    ROOT / "build" / "ranks")
+    t3 = time.perf_counter()
+    run_launch_entry_points(fixtures / f"lineitem_{MAIN_ROWS}.parquet",
+                            one["got"], card)
+    log(f"front door and sharded paths: cli {t1 - t0:.1f} s, one rank "
+        f"{t2 - t1:.1f} s, {SHARD_RANKS} child ranks {t3 - t2:.1f} s, the "
+        f"launch entry points {time.perf_counter() - t3:.1f} s; launches: "
+        f"cli {cli_launches}, one rank at full width {sharded_launches}, at "
+        f"{SHARD_ROWS} rows {one['launches_small']}")
+    for name, n in sharded_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 "paths")
+
+    # K2's gather at the emission decode's shapes, the inputs being the
+    # ones `_emissions_local` gave the wrapper in the runs above: the whole
+    # padded page block at one rank, a quarter of it at four (rank 0's, the
+    # shard with city's real pages), over the [1, DN] table of the
+    # dictionary entries' lengths
+    lens_table, gidx = one["emission_inputs"]
+    block = 8192  # distributed_index_build's page block
+    if gidx.ndim != 2 or gidx.shape[0] != block or lens_table.shape[0] != 1:
+        raise AssertionError(f"the emission decode of city gave dict_lookup "
+                             f"gidx {tuple(gidx.shape)} at one rank")
+    k2.update(time_decode_lookup(
+        lens_table, gidx, ops_per_s, prefix="emission",
+        where="inside the emission decode of city at one rank"))
+    with np.load(ROOT / "build" / "ranks" / "rank.emission.npz") as z:
+        table4 = torch.from_numpy(z["table"]).to(device)
+        gidx4 = torch.from_numpy(z["gidx"]).to(device)
+    share = block // SHARD_RANKS
+    if (gidx4.shape != (share, gidx.shape[1])
+            or not torch.equal(gidx4, gidx[:share])
+            or not torch.equal(table4, lens_table)
+            or any(r["emission_gidx"] != list(gidx4.shape)
+                   for r in child_reports)):
+        raise AssertionError(
+            f"the emission decode of city at {SHARD_RANKS} ranks gave "
+            f"dict_lookup gidx {tuple(gidx4.shape)}, not the first "
+            f"{share} rows of the one-rank block")
+    k2.update(time_decode_lookup(
+        table4, gidx4, ops_per_s, prefix="emission_four_ranks",
+        where=f"inside the emission decode of city at {SHARD_RANKS} ranks "
+              "(rank 0's shard)"))
     for name, entry in (("K1", k1), ("K2", k2)):
-        if entry["max_abs_err"] != 0 or entry.get("decode_max_abs_err", 0):
+        if (entry["max_abs_err"] != 0 or entry.get("decode_max_abs_err", 0)
+                or entry.get("emission_max_abs_err", 0)
+                or entry.get("emission_four_ranks_max_abs_err", 0)):
             raise AssertionError(f"{name} differs from its plain version")
     per_query["decode_k"] = k_decode["launches"]
     kernels = [
         {"name": "stream_matcher", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["stream_matcher"],
          "launches_decode_and_block_scans": slice_launches["stream_matcher"],
+         "launches_cli": cli_launches["stream_matcher"],
+         "launches_sharded_one_rank": sharded_launches["stream_matcher"],
+         f"launches_sharded_one_rank_{SHARD_ROWS}_rows":
+             one["launches_small"]["stream_matcher"],
+         "launches_sharded_child_ranks": [
+             r["launches"]["stream_matcher"] for r in child_reports],
          "launches_per_query": {q: v["stream_matcher"]
                                 for q, v in per_query.items()}, **k1},
         {"name": "dict_lookup", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["dict_lookup"],
          "launches_decode_and_block_scans": slice_launches["dict_lookup"],
+         "launches_cli": cli_launches["dict_lookup"],
+         "launches_sharded_one_rank": sharded_launches["dict_lookup"],
+         f"launches_sharded_one_rank_{SHARD_ROWS}_rows":
+             one["launches_small"]["dict_lookup"],
+         "launches_sharded_child_ranks": [
+             r["launches"]["dict_lookup"] for r in child_reports],
          "launches_per_query": {q: v["dict_lookup"]
                                 for q, v in per_query.items()}, **k2},
     ]
+    torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ module has an obvious counterpart.  The package imports `torch` and never
 `jax`; it reuses only the reference's JAX-free host layer (native prescan
 bindings, writer, schema, the regex and register-machine compilers, config).
 
-Public entry points: `models.scan.ScanEngine` and `ResidentColumn`.  Every
-entry point takes an explicit `device`; CUDA tensors go through the kernels
-in `ops/kernels/` and CPU tensors through their plain PyTorch versions.
+Public entry points: `models.scan.ScanEngine` and `ResidentColumn`, the
+command line (`python -m duckdb_parquet_parser_tpu_torch.cli`) and, for runs
+sharded over several devices (one process a device, `parallel/mesh.py`),
+`python -m duckdb_parquet_parser_tpu_torch.launch`.  Every entry point takes
+an explicit `device`; CUDA tensors go through the kernels in `ops/kernels/`
+and CPU tensors through their plain PyTorch versions.
 """
 
 __all__ = ["ScanEngine", "ResidentColumn", "ParquetReader"]

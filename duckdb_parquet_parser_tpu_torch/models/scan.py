@@ -3,8 +3,10 @@ pruning over a BYTE_ARRAY column.
 
 Port of `duckdb_parquet_parser_tpu.models.scan` (`ScanEngine.__init__ /
 resident / scan / matching_rows / cold_scan / scan_batched /
-scan_streaming`, `ResidentColumn`, `build_example_batch`,
-`single_chip_forward`).  The resident flow: prescan the column on the
+scan_streaming / build_index`, `IndexBuildResult`, `ResidentColumn`,
+`build_example_batch`, `single_chip_forward`, `make_engine`).  With a
+`PagesMesh` (parallel/mesh.py) the scan and the index build shard their
+pages over its ranks.  The resident flow: prescan the column on the
 host, upload the raw page payloads once (byte streams in the stream
 matcher's chunked layout, in length buckets — or, for big pages, as
 value-boundary segments), then per query walk the PLAIN bytes through the
@@ -29,6 +31,7 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -49,7 +52,16 @@ from ..ops.regex import (
     like_to_regex,
     substring_chain,
 )
+from ..ops.index import ChunkedIndex, build_index
 from ..ops.scan import PageMatchResult
+from ..parallel.mesh import make_mesh
+from ..parallel.partition import (
+    assign_balanced_equal,
+    pad_pages,
+    reorder_pages,
+)
+from ..parallel.pipeline import DistributedScanResult, distributed_scan
+from ..utils import checkpoints
 from ..utils.config import get_config
 from ..utils.metrics import get_metrics
 from ..utils.tracing import stage, trace_session
@@ -173,24 +185,79 @@ def _walk_batch(walker: _BlockWalker, batch, block_pages: int,
                         negate)
 
 
-class ScanEngine:
-    """Regex page pruning over one Parquet file on one torch device."""
+@dataclass
+class IndexBuildResult:
+    index: ChunkedIndex
+    chunk_owners: np.ndarray | None = None  # rank owning each chunk (mesh runs)
 
-    def __init__(self, path: str):
+
+class ScanEngine:
+    """End-to-end scan engine over one Parquet file.
+
+    mesh=None       -> one torch device, named per call
+    mesh=PagesMesh  -> pages sharded over the mesh's ranks, collectives for
+                       totals and the index entry exchange; every rank
+                       makes the same calls
+    """
+
+    def __init__(self, path: str, mesh=None):
         self.reader = ParquetReader(path)
+        self.mesh = mesh
 
     def scan(self, column: str, pattern: str, *, negate: bool = False,
-             like: bool = False, device) -> PageMatchResult:
-        """One-shot scan: uploads the column to `device` and runs one
-        query.  A pattern outside the DFA subset is answered on the host
-        with `re` (ops/scan.scan_batch_fallback)."""
+             like: bool = False, engine: str | None = None, fleet=None,
+             fault_hook=None,
+             device=None) -> PageMatchResult | DistributedScanResult:
+        """One-shot scan.  A pattern outside the DFA subset is answered on
+        the host with `re` (ops/scan.scan_batch_fallback).  With a mesh the
+        pages shard over its ranks, byte-balanced (`fleet` / `fault_hook`:
+        the elastic route, parallel/elastic.py).  Else `engine` (default:
+        the configuration's `scan_engine`) chooses: "native" is the fused
+        host scan (`cold_scan`), "torch" uploads the column to `device`,
+        which the caller must then name, and runs one query there."""
         _check_byte_array(self.reader, column)
+        cfg = get_config()
+        if engine is None:
+            engine = cfg.scan_engine
         pat = like_to_regex(pattern) if like else pattern
         try:
-            compile_pattern(pat)
+            dfa = compile_pattern(pat)
         except UnsupportedPattern:
             batch = self.reader.prescan(column, pad_strings=8)
             return _scan.scan_batch_fallback(batch, pat, negate=negate)
+
+        if self.mesh is not None:
+            batch = self.reader.prescan(
+                column, pad_strings=8,
+                flags=bindings.PS_HOST_STRINGS | bindings.PS_PAYLOAD)
+            n_dev = self.mesh.size
+            padded = pad_pages(
+                batch, n_dev * max(cfg.pages_per_shard_multiple, 1))
+            # byte-balanced shards: heaviest pages spread across ranks under
+            # the equal-count constraint (pad pages weigh 0)
+            weights = padded.arrays["page_payload_len"].astype(np.int64) + 16
+            weights = np.where(padded.arrays["page_num_values"] > 0, weights,
+                               0)
+            asg = assign_balanced_equal(weights, n_dev)
+            padded = reorder_pages(padded, asg.order)
+            if fault_hook is not None or fleet is not None:
+                # elastic path: detect failed ranks, re-run orphaned shards
+                # on the survivors, merge (parallel/elastic.py)
+                from ..parallel.elastic import elastic_distributed_scan
+
+                res, report = elastic_distributed_scan(
+                    self.mesh, padded, dfa, negate=negate, fleet=fleet,
+                    fault_hook=fault_hook)
+                res.elastic_report = report
+                return res
+            return distributed_scan(self.mesh, padded, dfa, negate=negate)
+
+        if engine == "native":
+            return self.cold_scan(column, pat, negate=negate)
+        if engine != "torch":
+            raise ValueError(f"unknown scan engine: {engine!r}")
+        if device is None:
+            raise ValueError('the "torch" scan engine needs a device')
         return self.resident(column, device).scan(pat, negate=negate)
 
     def matching_rows(self, column: str, pattern: str, *,
@@ -334,6 +401,56 @@ class ScanEngine:
         queries."""
         return ResidentColumn(self.reader, column, device=device)
 
+    # ── chunked inverted index ──────────────────────────────────────────────
+
+    def build_index(self, column: str, chunk_size: int | None = None,
+                    checkpoint_dir: str | None = None) -> IndexBuildResult:
+        if chunk_size is None:
+            chunk_size = get_config().index_chunk_size
+
+        if checkpoint_dir:
+            cached = checkpoints.load_index(
+                checkpoint_dir, self.reader._path, column, chunk_size
+            )
+            if cached is not None:
+                return IndexBuildResult(index=cached)
+
+        if self.mesh is not None:
+            from ..parallel.index_build import distributed_index_build
+
+            res = distributed_index_build(self.mesh, self.reader, column, chunk_size)
+            out = IndexBuildResult(index=res.index, chunk_owners=res.chunk_owners)
+        elif checkpoint_dir:
+            # PARTIAL resume: the emission stream checkpoints per row group
+            # (a build killed at 90% recomputes only the missing blocks —
+            # the boundary plan over the concatenated stream is cheap)
+            from ..ops.index import emissions_for_rg
+
+            pos_parts, len_parts = [], []
+            for rg in range(self.reader.num_row_groups()):
+                blk = checkpoints.load_block(
+                    checkpoint_dir, self.reader._path, column, rg)
+                if blk is None:
+                    blk = emissions_for_rg(self.reader, column, rg)
+                    checkpoints.save_block(
+                        checkpoint_dir, self.reader._path, column, rg, *blk)
+                pos_parts.append(blk[0])
+                len_parts.append(blk[1])
+            pos = np.concatenate(pos_parts) if pos_parts else np.zeros(0, np.int64)
+            lens = np.concatenate(len_parts) if len_parts else np.zeros(0, np.int64)
+            out = IndexBuildResult(
+                index=build_index(pos, lens, self.reader.num_rows(), chunk_size)
+            )
+        else:
+            from ..ops.index import build_index_for_column
+
+            out = IndexBuildResult(
+                index=build_index_for_column(self.reader, column, chunk_size)
+            )
+        if checkpoint_dir:
+            checkpoints.save_index(checkpoint_dir, self.reader._path, column, out.index)
+        return out
+
 
 def cold_scan(reader: ParquetReader, column: str, pattern: str, *,
               negate: bool = False, like: bool = False,
@@ -395,48 +512,9 @@ class ResidentColumn:
         self.device = torch.device(device)
         self._batch = batch if batch is not None else reader.prescan(
             column, pad_strings=8, flags=bindings.PS_PAYLOAD)
-        arrays = self._batch.arrays
-        plen = np.asarray(arrays["page_payload_len"])
-        is_dict = np.asarray(arrays["page_kind"]) == 1
-        dev = self.device
-
-        nn = np.asarray(arrays["page_nn"])
-        self._buckets = []
-        sp = _scan.split_payload_pages(arrays)
-        if sp is not None:
-            sub_payload, sub_len, sub_nn, seg_page = sp
-            steps = min(_scan.scan_steps(sub_len), sub_payload.shape[1])
-            plain_lane = ~is_dict[seg_page]
-            self._buckets.append(dict(
-                idx=slice(None), steps=steps,
-                core=self._batch.to_device(dev, _decode.DECODE_ARRAYS),
-                stream=_scan.resident_stream(sub_payload, steps, dev),
-                walk_plen=to_tensor(np.where(plain_lane, sub_len, 0), dev,
-                                    dtype=np.int32),
-                walk_nn=to_tensor(np.where(plain_lane, sub_nn, 0), dev,
-                                  dtype=np.int32),
-                seg=to_tensor(seg_page, dev, dtype=np.int64),
-                has_plain=bool(plain_lane.any()),
-                has_dict=bool(is_dict.any())))
-        else:
-            walk_plen = np.where(is_dict, 0, plen)
-            walk_nn = np.where(is_dict, 0, nn)
-            for idx, steps in _scan.length_buckets(walk_plen):
-                self._buckets.append(dict(
-                    idx=idx, steps=steps,
-                    core=self._batch.to_device(dev, _decode.DECODE_ARRAYS,
-                                               rows=idx),
-                    stream=_scan.resident_stream(arrays["payload"], steps,
-                                                 dev, rows=idx),
-                    walk_plen=to_tensor(walk_plen, dev, rows=idx,
-                                        dtype=np.int32),
-                    walk_nn=to_tensor(walk_nn, dev, rows=idx,
-                                      dtype=np.int32),
-                    seg=None,
-                    has_plain=bool((~is_dict[idx]).any()),
-                    has_dict=bool(is_dict[idx].any())))
-        self.split = sp is not None
-        self._gid = arrays["page_gid"].copy()
+        self._buckets, self.split = _scan.resident_buckets(self._batch,
+                                                           self.device)
+        self._gid = self._batch.arrays["page_gid"].copy()
 
     @property
     def n_pages(self) -> int:
@@ -446,22 +524,8 @@ class ResidentColumn:
         """[K, N] match counts and [K, N] value counts of one walk over
         every bucket (K patterns fused)."""
         irs, dfa = _scan.resolve_matchers(pats)
-        table = _scan.accept_table(_scan.dict_accepts(self._batch, dfas),
-                                   self.device)
-        b = self._batch
-        k = len(pats)
-        counts = np.zeros((k, self.n_pages), np.int64)
-        values = np.zeros((k, self.n_pages), np.int64)
-        for bk in self._buckets:
-            c, v = _scan.device_scan_step(
-                bk["core"], bk["stream"], bk["walk_plen"], bk["walk_nn"],
-                table, irs=irs, dfa=dfa, vmax=b.vmax, nn_cap=b.nn_cap,
-                max_def=b.max_def, negate=bool(negate), steps=bk["steps"],
-                has_plain=bk["has_plain"], has_dict=bk["has_dict"],
-                seg=bk["seg"])
-            counts[:, bk["idx"]] = c.cpu().numpy()
-            values[:, bk["idx"]] = v.cpu().numpy()[None, :]
-        return counts, values
+        return _scan.scan_buckets(self._batch, self._buckets, irs, dfa, dfas,
+                                  negate, self.device)
 
     def scan(self, pattern: str, *, negate: bool = False,
              like: bool = False) -> PageMatchResult:
@@ -570,3 +634,9 @@ def single_chip_forward(batch, pattern: str, *, device):
         to_tensor(arrays["page_payload_len"], device, dtype=np.int32),
         dict_match)
     return forward, example_args
+
+
+def make_engine(path: str, mesh=None) -> ScanEngine:
+    """A `ScanEngine` over `path`; sharded over `mesh`
+    (`parallel.mesh.make_mesh(device, backend)`) where one is given."""
+    return ScanEngine(path, mesh=mesh)

@@ -397,3 +397,71 @@ def resident_stream(payload: np.ndarray, steps: int, device,
     Made once at residency."""
     a = np.asarray(payload)[:, :steps]
     return stream_matcher.chunk_stream(to_tensor(a, device, rows=rows).t())
+
+
+def resident_buckets(batch, device):
+    """The device-side layout of a PS_PAYLOAD page batch for repeated
+    walks: (buckets, split).  Pages live in LENGTH BUCKETS
+    (`length_buckets`): each bucket's walk stops at its own longest page.
+    Big pages (over SPLIT_TRIGGER bytes) are instead kept as value-boundary
+    segments whose hits sum back to pages (`split` is then True and there
+    is one bucket).  Each bucket records which page kinds it holds, so a
+    query launches the walk only over PLAIN pages and the dictionary
+    kernel only over dictionary pages.  A PLAIN page without a value (the
+    pad pages of a sharded batch) needs no walk: its counts are zero."""
+    arrays = batch.arrays
+    plen = np.asarray(arrays["page_payload_len"])
+    is_dict = np.asarray(arrays["page_kind"]) == 1
+    nn = np.asarray(arrays["page_nn"])
+    dev = torch.device(device)
+    sp = split_payload_pages(arrays)
+    if sp is not None:
+        sub_payload, sub_len, sub_nn, seg_page = sp
+        steps = min(scan_steps(sub_len), sub_payload.shape[1])
+        plain_lane = ~is_dict[seg_page] & (sub_nn > 0)
+        return [dict(
+            idx=slice(None), steps=steps,
+            core=batch.to_device(dev, _decode.DECODE_ARRAYS),
+            stream=resident_stream(sub_payload, steps, dev),
+            walk_plen=to_tensor(np.where(plain_lane, sub_len, 0), dev,
+                                dtype=np.int32),
+            walk_nn=to_tensor(np.where(plain_lane, sub_nn, 0), dev,
+                              dtype=np.int32),
+            seg=to_tensor(seg_page, dev, dtype=np.int64),
+            has_plain=bool(plain_lane.any()),
+            has_dict=bool(is_dict.any()))], True
+    buckets = []
+    walk_plen = np.where(is_dict, 0, plen)
+    walk_nn = np.where(is_dict, 0, nn)
+    for idx, steps in length_buckets(walk_plen):
+        buckets.append(dict(
+            idx=idx, steps=steps,
+            core=batch.to_device(dev, _decode.DECODE_ARRAYS, rows=idx),
+            stream=resident_stream(arrays["payload"], steps, dev, rows=idx),
+            walk_plen=to_tensor(walk_plen, dev, rows=idx, dtype=np.int32),
+            walk_nn=to_tensor(walk_nn, dev, rows=idx, dtype=np.int32),
+            seg=None,
+            has_plain=bool((walk_nn[idx] > 0).any()),
+            has_dict=bool(is_dict[idx].any())))
+    return buckets, False
+
+
+def scan_buckets(batch, buckets, irs, dfa, dfas, negate: bool, device):
+    """[K, N] match counts and [K, N] value counts (int64, on the host) of
+    one walk over every bucket of `resident_buckets(batch, device)`: `irs`
+    / `dfa` from `resolve_matchers`, `dfas` the K compiled patterns, whose
+    accepts of the dictionary entries are computed on the host."""
+    table = accept_table(dict_accepts(batch, dfas), device)
+    k = len(dfas)
+    counts = np.zeros((k, batch.n_pages), np.int64)
+    values = np.zeros((k, batch.n_pages), np.int64)
+    for bk in buckets:
+        c, v = device_scan_step(
+            bk["core"], bk["stream"], bk["walk_plen"], bk["walk_nn"],
+            table, irs=irs, dfa=dfa, vmax=batch.vmax, nn_cap=batch.nn_cap,
+            max_def=batch.max_def, negate=bool(negate), steps=bk["steps"],
+            has_plain=bk["has_plain"], has_dict=bk["has_dict"],
+            seg=bk["seg"])
+        counts[:, bk["idx"]] = c.cpu().numpy()
+        values[:, bk["idx"]] = v.cpu().numpy()[None, :]
+    return counts, values

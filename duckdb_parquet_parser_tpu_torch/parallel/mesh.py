@@ -1,0 +1,197 @@
+"""The pages mesh: one process per device over `torch.distributed`.
+
+Counterpart of `duckdb_parquet_parser_tpu.parallel.mesh`.  The engine's
+parallel axis is *pages*: page batches shard along one axis, and the index
+build's entry exchange is an all-to-all over the same ranks.  The reference
+is single-controller inside a process (one `Mesh` over its devices, sharded
+with `shard_map`) and multi-controller across hosts.  The port takes
+PyTorch's idiom for both cases: every rank is a process with one device, and
+a `PagesMesh` names the rank, the group's size, the rank's device, the
+process group and its backend.
+
+The backend is the caller's explicit choice: "nccl" where every rank has a
+card of its own, "gloo" where the ranks run on the CPU or share one card
+(NCCL refuses two ranks on one device).  Nothing falls from one to the
+other.  A process that formed no group gets a group of one rank from
+`make_mesh`, so the one-device case runs the same collectives as the
+sharded one and not a second code path.
+
+Every rank holds the whole padded batch on the host, as every process of
+the reference does, and uploads only its own page rows; `to_global` is the
+result boundary, where every rank gets the whole array.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from dataclasses import dataclass
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+# a collective that a lost rank never joins ends here and not at the
+# library's half hour
+GROUP_TIMEOUT = timedelta(seconds=600)
+
+
+@dataclass(frozen=True)
+class PagesMesh:
+    """One rank's view of a 1-D mesh over pages.  `rank` is the rank's slot
+    in this mesh (-1 for a process that is not a member of a survivor
+    mesh), `size` the number of slots, `ranks` the global rank behind each
+    slot."""
+
+    rank: int
+    size: int
+    device: torch.device
+    group: object
+    backend: str
+    ranks: tuple
+
+    @property
+    def member(self) -> bool:
+        return self.rank >= 0
+
+
+def _check(device, backend: str) -> torch.device:
+    device = torch.device(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}: {backend!r}")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("the nccl backend needs a CUDA device for every "
+                         f"rank; this rank was given {device}")
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        # kernels and NCCL collectives launch on the current device
+        torch.cuda.set_device(device)
+    return device
+
+
+def make_mesh(device, backend: str) -> PagesMesh:
+    """The mesh over every rank of the process group, with this rank's
+    `device`.  With no group formed (`distributed_init_from_env` returned
+    False, or was not called) a group of this one rank is formed here."""
+    device = _check(device, backend)
+    if not dist.is_initialized():
+        fd, store = tempfile.mkstemp(prefix="dpq_group_")
+        os.close(fd)
+        os.unlink(store)  # the file store creates and removes it itself
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=0, world_size=1, timeout=GROUP_TIMEOUT)
+    elif dist.get_backend() != backend:
+        raise ValueError(f"the process group was formed over "
+                         f"{dist.get_backend()}, not {backend}")
+    size = dist.get_world_size()
+    return PagesMesh(rank=dist.get_rank(), size=size, device=device,
+                     group=dist.group.WORLD, backend=backend,
+                     ranks=tuple(range(size)))
+
+
+def distributed_init_from_env(backend: str) -> bool:
+    """Forms the process group from the environment; returns True when a
+    group formed.
+
+    Detection order:
+      1. DPQ_COORDINATOR (+ DPQ_NUM_PROCESSES / DPQ_PROCESS_ID): explicit
+         rendezvous at `tcp://<coordinator>`, on any backend;
+      2. `torchrun`'s RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT;
+      3. neither: single process, nothing formed (`make_mesh` then forms a
+         group of one)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}: {backend!r}")
+    env = os.environ
+    if env.get("DPQ_COORDINATOR"):
+        dist.init_process_group(
+            backend, init_method=f"tcp://{env['DPQ_COORDINATOR']}",
+            world_size=int(env.get("DPQ_NUM_PROCESSES", "1")),
+            rank=int(env.get("DPQ_PROCESS_ID", "0")), timeout=GROUP_TIMEOUT)
+        return True
+    if all(env.get(k) for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                "MASTER_PORT")):
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=GROUP_TIMEOUT)
+        return True
+    return False
+
+
+def rank_device(device: str) -> str:
+    """The device an entry point was asked for, for this rank: a bare
+    "cuda" under `torchrun` is the card of the local rank."""
+    if device == "cuda" and os.environ.get("LOCAL_RANK"):
+        return f"cuda:{os.environ['LOCAL_RANK']}"
+    return device
+
+
+def _stage(mesh: PagesMesh, x) -> torch.Tensor:
+    """`x` where the backend's collectives take it: on the host under
+    gloo (a CUDA shard is staged through the host here, in this one
+    place), on the rank's card under nccl."""
+    t = torch.as_tensor(x)
+    t = t.cpu() if mesh.backend == "gloo" else t.to(mesh.device)
+    return t.contiguous()
+
+
+def to_global(mesh: PagesMesh, x) -> np.ndarray:
+    """The result boundary of a sharded operation: every rank's shard `x`
+    (equal shapes) concatenated along axis 0, in rank order, as a numpy
+    array on EVERY rank."""
+    t = _stage(mesh, x)
+    as_bool = t.dtype == torch.bool
+    if as_bool:
+        t = t.view(torch.uint8)
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(parts, t, group=mesh.group)
+    out = torch.cat(parts).cpu().numpy()
+    return out.view(bool) if as_bool else out
+
+
+def all_reduce_sum(mesh: PagesMesh, x) -> np.ndarray:
+    """The sum of every rank's `x` (an integer tensor), on every rank."""
+    t = _stage(mesh, x).clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    return t.cpu().numpy()
+
+
+def broadcast_arrays(mesh: PagesMesh, arrays, src: int):
+    """`arrays` (any picklable value, numpy arrays here) of mesh slot `src`
+    on every rank of `mesh`; the other ranks pass None."""
+    box = [arrays if mesh.rank == src else None]
+    via = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+    dist.broadcast_object_list(box, src=mesh.ranks[src], group=mesh.group,
+                               device=via)
+    return box[0]
+
+
+def survivor_mesh(mesh: PagesMesh, live: list[int]) -> PagesMesh:
+    """A mesh over the surviving slots `live` of `mesh` (elastic recovery
+    re-runs orphaned shards on it).  `mesh` must span the whole process
+    group, and EVERY rank of it must make this call, the failed ones too:
+    forming a sub-group is itself a collective of the parent group.  A rank
+    outside `live` gets a mesh of which it is no member (`rank == -1`); it
+    sits the re-run out and receives the merged result by
+    `broadcast_arrays` over the full mesh."""
+    if mesh.group is not dist.group.WORLD:
+        raise ValueError("survivor_mesh needs the mesh of the whole group")
+    ranks = tuple(mesh.ranks[d] for d in live)
+    group = dist.new_group(ranks=list(ranks), backend=mesh.backend,
+                           timeout=GROUP_TIMEOUT)
+    slot = live.index(mesh.rank) if mesh.rank in live else -1
+    return PagesMesh(rank=slot, size=len(live), device=mesh.device,
+                     group=group, backend=mesh.backend, ranks=ranks)
+
+
+def run_on_survivors(mesh: PagesMesh, live: list[int], fn):
+    """`fn(sub_mesh)` on the survivor mesh over `live`, its value (numpy
+    arrays) on every rank of `mesh`: the members run it, and the first of
+    them hands its value to everybody."""
+    sub = survivor_mesh(mesh, live)
+    value = None
+    if sub.member:
+        value = fn(sub)
+        dist.destroy_process_group(sub.group)
+    return broadcast_arrays(mesh, value, live[0])

@@ -1,8 +1,10 @@
 """The port's own copies of the JAX-free layers (duckdb_parquet_parser_tpu_torch/
 ops/regex.py, ops/bitprog.py, ops/strings.make_bitap_transition, host/
 bindings.py, host/writer.py, host/schema.py, host/assembly.py, host/reader.py,
-utils/config.py, utils/metrics.py, the `dict_ints` fixture and the native
-library built from host/native/) against the reference modules they were
+utils/config.py, utils/metrics.py, utils/checkpoints.py, ops/index.py,
+parallel/partition.py, the host half of parallel/shuffle.py, `FleetState` of
+parallel/elastic.py, the `dict_ints` fixture and the native library built
+from host/native/) against the reference modules they were
 copied from, over the pattern corpus the port's tests use.  Tolerance 0:
 tables, programs, traced transitions, prescan arrays, file bytes and the
 copied sources are equal."""
@@ -109,11 +111,33 @@ def test_schema_enums_and_config_defaults_equal():
             assert got == {m.name: m.value for m in ref_cls}, name
     ref_cfg = ref_config.EngineConfig()
     cfg = config.EngineConfig()
-    for field in ("batch_align", "max_dfa_states"):
-        assert getattr(cfg, field) == getattr(ref_cfg, field)
+    shared = set(vars(cfg)) & set(vars(ref_cfg))
+    assert shared == {"index_chunk_size", "batch_align", "scan_engine",
+                      "max_dfa_states", "pages_per_shard_multiple",
+                      "exchange_capacity_slack", "exchange_mode",
+                      "profile_dir"}
+    # the one deliberate difference: `scan_engine` names the port's own
+    # engines ("torch" | "native" for the reference's "jax" | "numpy")
+    for field in shared - {"scan_engine"}:
+        assert getattr(cfg, field) == getattr(ref_cfg, field), field
+        assert type(getattr(cfg, field)) is type(getattr(ref_cfg, field))
+    assert (cfg.scan_engine, ref_cfg.scan_engine) == ("torch", "jax")
     for name in dir(ref_bindings):
         if name.startswith("PS_"):
             assert getattr(bindings, name) == getattr(ref_bindings, name)
+
+
+def test_config_from_env_parses_each_type(monkeypatch):
+    monkeypatch.setenv("DPQ_EXCHANGE_CAPACITY_SLACK", "1.5")
+    monkeypatch.setenv("DPQ_INDEX_CHUNK_SIZE", "512")
+    monkeypatch.setenv("DPQ_EXCHANGE_MODE", "padded")
+    monkeypatch.setenv("DPQ_SCAN_ENGINE", "native")
+    cfg, ref_cfg = (config.EngineConfig.from_env(),
+                    ref_config.EngineConfig.from_env())
+    for field in ("exchange_capacity_slack", "index_chunk_size",
+                  "exchange_mode", "scan_engine"):
+        assert getattr(cfg, field) == getattr(ref_cfg, field), field
+    assert cfg.exchange_capacity_slack == 1.5 and cfg.index_chunk_size == 512
 
 
 def test_port_builds_its_own_native_library():
@@ -202,6 +226,74 @@ def test_assembly_and_metrics_are_verbatim_copies():
         got, want = _functions(mod), _functions(ref)
         assert got == want, mod.__name__
         assert len(want) >= 5
+
+
+def test_index_checkpoints_and_partition_are_verbatim_copies():
+    from duckdb_parquet_parser_tpu.ops import index as ref_index
+    from duckdb_parquet_parser_tpu.parallel import partition as ref_partition
+    from duckdb_parquet_parser_tpu.utils import checkpoints as ref_ckpt
+    from duckdb_parquet_parser_tpu_torch.ops import index
+    from duckdb_parquet_parser_tpu_torch.parallel import partition
+    from duckdb_parquet_parser_tpu_torch.utils import checkpoints
+
+    for mod, ref, least in ((index, ref_index, 7), (checkpoints, ref_ckpt, 7),
+                            (partition, ref_partition, 9)):
+        got, want = _functions(mod), _functions(ref)
+        assert got == want, mod.__name__
+        assert len(want) >= least
+
+
+# the exchange's device half: `all_to_all_single` in the port, where the
+# reference calls its compiler's collectives (and emulates the exact-size
+# one on backends that lack it, which the port never needs)
+SHUFFLE_PORTED = {"all_to_all_exchange", "ragged_exchange",
+                  # one gather for the cold chunks, a visit per salted one
+                  "SaltedOwnership.entry_destinations"}
+SHUFFLE_DROPPED = {"ragged_exchange_emulated"}
+SHUFFLE_ADDED = {"PendingExchange.wait", "_to_exchange"}
+
+
+def test_shuffle_host_half_and_fleet_state_are_verbatim_copies():
+    from duckdb_parquet_parser_tpu.parallel import elastic as ref_elastic
+    from duckdb_parquet_parser_tpu.parallel import shuffle as ref_shuffle
+    from duckdb_parquet_parser_tpu_torch.parallel import elastic, shuffle
+
+    got, want = _functions(shuffle), _functions(ref_shuffle)
+    assert set(want) - set(got) == SHUFFLE_DROPPED
+    assert set(got) - set(want) == SHUFFLE_ADDED
+    differing = {name for name in set(want) & set(got)
+                 if got[name] != want[name]}
+    assert differing == SHUFFLE_PORTED, differing
+    assert len(set(want) & set(got)) - len(differing) >= 8
+
+    got, want = _functions(elastic), _functions(ref_elastic)
+    assert set(got) == set(want)
+    differing = {name for name in want if got[name] != want[name]}
+    assert differing == {"elastic_distributed_scan"}, differing
+    assert sum(name.startswith("FleetState.") for name in want) >= 4
+
+
+@pytest.mark.parametrize("n_devices", [1, 4, 8])
+def test_salted_entry_destinations_equal(n_devices):
+    from duckdb_parquet_parser_tpu.parallel import shuffle as ref_shuffle
+    from duckdb_parquet_parser_tpu_torch.parallel import shuffle
+
+    # chunk 0 entry-hot, chunk 1 byte-hot, the rest cold
+    chunk_bytes = np.array([4000, 60000] + [500] * 30, np.int64)
+    chunk_entries = np.array([4000, 10] + [12] * 30, np.int64)
+    chunk_of_entry = np.repeat(np.arange(len(chunk_bytes)), chunk_entries)
+    got = shuffle.salted_chunk_owners(chunk_bytes, n_devices, 2.0,
+                                      chunk_entries=chunk_entries)
+    want = ref_shuffle.salted_chunk_owners(chunk_bytes, n_devices, 2.0,
+                                           chunk_entries=chunk_entries)
+    np.testing.assert_array_equal(got.primary, want.primary)
+    assert (n_devices == 1) or any(len(d) > 1 for d in got.owners)
+    a = got.entry_destinations(chunk_of_entry)
+    b = want.entry_destinations(chunk_of_entry)
+    np.testing.assert_array_equal(a, b)
+    assert a.dtype == b.dtype
+    empty = shuffle.salted_chunk_owners(np.zeros(0, np.int64), n_devices)
+    assert empty.entry_destinations(np.zeros(0, np.int64)).shape == (0,)
 
 
 # the reader's functions that differ by design: they call the port's tensor

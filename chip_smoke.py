@@ -21,6 +21,16 @@ on the card as on the CPU; 2M seeded DELTA_BINARY_PACKED values decode to
 their seed; and the block scans (`scan_batched`, `scan_streaming`), the
 row-level matches (`matching_rows`) and the fused single step
 (`single_chip_forward`) equal the native scan.
+Then the table-DFA path (kernel K3, for patterns outside the
+register-machine family): K3's page walk against its plain version on both
+resident l_comment buckets for three such patterns and under random tables
+of 300 and 4,096 states (staged in shared memory / read from device memory),
+its per-value walk on l_comment's `str_padded` and city's `dict_padded`;
+the resident queries (plain and negated), `scan_streaming` and
+`matching_rows` against the native scan, with K3's launches counted and
+none of K1's; a never-seen table-DFA pattern's first query, which builds
+nothing; K3 timed beside its plain version and its bound, and one warm
+query profiled with K3 and with the plain loop it replaced.
 Then the front door and the sharded paths: the command line (`cli.main`:
 file info, a regex scan on the card that prints what the native scan
 prints, `index ... l_comment` with its 18767 chunks); one rank over NCCL on
@@ -31,7 +41,7 @@ over gloo that share the card, started as child processes of this script on
 a 500,000-row file, each holding its results against the one-rank answers;
 then `python -m duckdb_parquet_parser_tpu_torch.launch` (`scan`, `index`,
 `scaling-bench`) as three one-rank NCCL processes whose JSON lines must
-agree with the sharded phase.
+agree with the sharded phase; one NCCL rank also scans a table-DFA pattern.
 Each kernel is timed at the main path's shapes beside its plain version,
 its bound (the larger of bytes over the card's memory rate and int32
 operations over the card's int32 rate, for the work these inputs need) and,
@@ -96,10 +106,20 @@ DELTA_PAGES, DELTA_VALUES_PER_PAGE = 2000, 1000
 SHARD_ROWS, SHARD_RANKS, FAILED_RANK = 500_000, 4, 2
 CHILD_TIMEOUT_S = 420
 L_COMMENT_CHUNKS = 18767  # chunks of the 2M-row l_comment at 4096 bytes
+# patterns outside the register-machine family: K3 walks their table DFA
+TABLE_PATTERNS = ["(furiously|carefully) (express|regular)+ (deposits|requests)",
+                  "(ly )+requests", "[a-z]+ly (final|bold)+ "]
+# a table-DFA pattern no query has seen: K3's table is data, so its first
+# query builds nothing
+COLD_TABLE_PATTERN = "(slyly|quickly) (pending|final)+ (packages|accounts)"
 K1_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/stream_matcher.cu.in"
 K2_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/dict_lookup.cu"
+K3_SOURCE = "duckdb_parquet_parser_tpu_torch/csrc/dfa_walk.cu"
 K1_REPLACES = "duckdb_parquet_parser_tpu/ops/pallas/stream_matcher.py:94"
 K2_REPLACES = "duckdb_parquet_parser_tpu/ops/pallas/dict_lookup.py:85"
+# no Pallas kernel: the matrix-unit transition inside the page walk's
+# lax.scan (ops/strings.py::_match_stream_multi) and ops/scan.py::dfa_match
+K3_REPLACES = "duckdb_parquet_parser_tpu/ops/mxu_dfa.py:178"
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -441,29 +461,34 @@ NOT_PROFILED = ("not measured: the profiler recorded no device events in "
                 "three tries")
 
 
-def device_profile(fn, trace: Path):
+def device_profile(fn, trace: Path, cpu: bool = True, launches: int = 0):
     """One call of `fn` under torch.profiler after a warm-up: (wall ms
     under the profiler, device busy ms, kernel launches, {kernel: ms}).
     Busy is the union of kernel / memcpy / memset intervals in the
     exported trace.  The profiler now and then loses one profile's device
     events, so a profile without any is tried again, three in all; busy is
     None when all three recorded none.  A profile is a measurement: the
-    run's checks (results, launch counters) do not hang on it."""
+    run's checks (results, launch counters) do not hang on it.  `cpu=False`
+    records the device's activity only (a call of tens of thousands of
+    launches); a profile that shows fewer than `launches` kernels lost some
+    and is tried again too."""
     fn()
     for _ in range(3):
-        found = _profile_once(fn, trace)
-        if found[1] is not None:
+        found = _profile_once(fn, trace, cpu)
+        if found[1] is not None and found[2] >= launches:
             break
     return found
 
 
-def _profile_once(fn, trace: Path):
+def _profile_once(fn, trace: Path, cpu: bool = True):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -573,14 +598,16 @@ def run_main_path(device, rows, dict_rows_per_rg, dict_distinct,
 
 
 def reset_launches() -> None:
-    """Sets both wrappers' launch counters to 0."""
+    """Sets every wrapper's launch counter to 0."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dfa_walk,
         dict_lookup,
         stream_matcher,
     )
 
     stream_matcher.launches = 0
     dict_lookup.launches = 0
+    dfa_walk.launches = 0
 
 
 def read_launches() -> dict:
@@ -1244,6 +1271,483 @@ def run_block_scans(device, eng, deng, fixtures: Path):
         "resident scan")
 
 
+def k3_launches() -> dict:
+    """The three wrappers' launch counters."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
+
+    return {**read_launches(), "dfa_walk": dfa_walk.launches}
+
+
+def random_dfa(rng, n_states: int, n_classes: int):
+    """A random automaton over `n_classes` byte classes (each one used)."""
+    import numpy as np
+
+    from duckdb_parquet_parser_tpu_torch.ops.regex import DFA
+
+    class_of = rng.permutation(np.concatenate([
+        np.arange(n_classes), rng.integers(0, n_classes, 256 - n_classes)]))
+    table = rng.integers(0, n_states, (n_states, n_classes))[:, class_of]
+    return DFA(table.astype(np.int32), rng.random(n_states) < 0.4,
+               f"random {n_states}x{n_classes}")
+
+
+def variant_name(staged: bool) -> str:
+    return "shared memory" if staged else "device memory"
+
+
+def check_table_kernels(col, eng, deng, device):
+    """(a) K3's page walk against its plain version, bit for bit, in both
+    variants (the table staged in shared memory, and read from device
+    memory) and in the one the wrapper picks, on both resident l_comment
+    buckets for each table-DFA pattern, and on random pages under a random
+    300-state table of 256 byte classes (153,856 bytes, staged above 48 KB
+    when forced) and a 4,096-state one (too large to stage: device memory
+    only); (b) its per-value walk against its plain version on l_comment's
+    `str_padded` and city's `dict_padded`, and under the random tables.
+    Returns the str_padded tensors, which (f) times."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.host.batch import to_tensor
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dfa_walk,
+        stream_matcher,
+    )
+    from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+
+    per_block = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    dev_index = torch.cuda.current_device()
+    for bk in col._buckets:
+        if not bk["has_plain"]:
+            continue
+        plain_stream = stream_matcher.unchunk_stream(bk["stream"],
+                                                     bk["steps"])
+        for pat in TABLE_PATTERNS:
+            dfa = compile_pattern(pat)
+            args = (bk["walk_plen"], bk["walk_nn"], dfa, bk["steps"])
+            t0 = time.perf_counter()
+            h0, s0 = dfa_walk.stream_walk_plain(plain_stream, *args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            for staged in (None, False, True):
+                h1, s1 = dfa_walk.stream_walk(bk["stream"], *args,
+                                              staged=staged)
+                if not (torch.equal(h1, h0) and torch.equal(s1, s0)):
+                    raise AssertionError(
+                        f"K3 (staged={staged}) disagrees with its plain "
+                        f"version on {pat!r}, bucket "
+                        f"{tuple(bk['stream'].shape)}")
+            size = len(dfa_walk.pack_table(dfa).data)
+            log(f"K3 page walk vs plain on {pat!r} ({dfa.n_states} states, "
+                f"{dfa.byte_classes().n_classes} classes, {size} table "
+                f"bytes; the wrapper picks "
+                f"{variant_name(dfa_walk.stages(dev_index, False, size))}) "
+                f"over the l_comment bucket {tuple(bk['stream'].shape)}: "
+                f"both variants exact, {int(h1.sum())} hits ({plain_s:.1f} s "
+                "for the plain loop)")
+        del plain_stream
+    rng = np.random.default_rng(53)
+    pm, plen, nn = random_pages(rng, 3000, 6, 40, alphabet=bytes(range(256)))
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(device)
+    pl = torch.from_numpy(plen).to(device)
+    nv = torch.from_numpy(nn).to(device)
+    chars = torch.from_numpy(rng.integers(0, 256, (20000, 48),
+                                          dtype=np.uint8)).to(device)
+    lens = torch.from_numpy(rng.integers(0, 60, 20000).astype(np.int32)).to(
+        device)
+    for n_states, fits in ((300, True), (4096, False)):
+        dfa = random_dfa(rng, n_states, 256)
+        size = len(dfa_walk.pack_table(dfa).data)
+        if (size <= per_block) != fits:
+            raise AssertionError(f"a {size}-byte table against {per_block} "
+                                 "bytes of shared memory a block")
+        h0, s0 = dfa_walk.stream_walk_plain(pt, pl, nv, dfa)
+        v0 = dfa_walk.value_walk_plain(chars, lens, dfa)
+        for staged in (None, False) + ((True,) if fits else ()):
+            h1, s1 = dfa_walk.stream_walk(stream_matcher.chunk_stream(pt), pl,
+                                          nv, dfa, staged=staged)
+            v1 = dfa_walk.value_walk(chars, lens, dfa, staged=staged)
+            if not (torch.equal(h1, h0) and torch.equal(s1, s0)
+                    and torch.equal(v1, v0)):
+                raise AssertionError(f"K3 (staged={staged}) disagrees with "
+                                     f"its plain version under {dfa.pattern}")
+        log(f"K3 vs plain under a {dfa.pattern} table ({size} bytes; "
+            f"{per_block} bytes of shared memory a block; the wrapper picks "
+            f"{variant_name(dfa_walk.stages(dev_index, False, size))} for the "
+            f"page walk, "
+            f"{variant_name(dfa_walk.stages(dev_index, True, size))} for the "
+            f"per-value walk): page walk over {len(plen)} random pages and "
+            f"per-value walk over {tuple(chars.shape)} exact in "
+            f"{'both variants' if fits else 'device memory'}, "
+            f"{int(h1.sum())} hits, {int(v1.sum())} values accepted")
+
+    t0 = time.perf_counter()
+    sbatch = eng.reader.prescan("l_comment", pad_strings=8)
+    dbatch = deng.reader.prescan("city", pad_strings=8)
+    prescan_ms = (time.perf_counter() - t0) * 1e3
+    str_chars = to_tensor(sbatch.arrays["str_padded"], device)
+    str_lens = to_tensor(sbatch.arrays["str_lens"], device, dtype=np.int32)
+    dict_chars = to_tensor(dbatch.arrays["dict_padded"], device)
+    dict_lens = to_tensor(dbatch.arrays["dict_lens"], device, dtype=np.int32)
+    for label, c, ln, pats in (
+            ("l_comment str_padded", str_chars, str_lens, TABLE_PATTERNS),
+            ("city dict_padded", dict_chars, dict_lens,
+             TABLE_PATTERNS + DICT_PATTERNS[:1])):
+        for pat in pats:
+            dfa = compile_pattern(pat)
+            v1 = dfa_walk.value_walk(c, ln, dfa)
+            v0 = dfa_walk.value_walk_plain(c, ln, dfa)
+            if not torch.equal(v1, v0):
+                raise AssertionError(f"K3's per-value walk disagrees with its "
+                                     f"plain version on {label}, {pat!r}")
+        log(f"K3 per-value walk vs plain on {label} {tuple(c.shape)}: "
+            f"{len(pats)} patterns exact (last: {int(v1.sum())} accepted)")
+    log(f"(prescans with pad_strings for the per-value walk: {prescan_ms:.1f} "
+        "ms)")
+    return str_chars, str_lens
+
+
+def run_table_dfa_path(col, eng, device):
+    """(c) The resident table-DFA queries, plain and negated, against the
+    native exact host scan, with K3's launches per query (one a bucket
+    with PLAIN pages) and none of K1's; (d) `scan_streaming` and
+    `matching_rows` of the first pattern against the native answers;
+    (e) one query on a table-DFA pattern never seen, which must build
+    nothing.  The caller sets the counters to 0 before and reads them
+    after.  Returns the report rows and the launches that the first
+    pattern's resident query made."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops import scan
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import build
+
+    report = []
+    n_rows = eng.reader.num_rows()
+    want = {"stream_matcher": 0, "dict_lookup": 0,
+            "dfa_walk": sum(b["has_plain"] for b in col._buckets)}
+    first_query = None  # the launches of the first pattern's query
+    for pat in TABLE_PATTERNS:
+        before = k3_launches()
+        res = col.scan(pat)
+        per_query = {k: v - before[k] for k, v in k3_launches().items()}
+        if per_query != want:
+            raise AssertionError(f"{pat!r}: one resident query launched "
+                                 f"{per_query}, not {want}")
+        first_query = first_query or per_query
+        hits, pruned = assert_same(res, eng, "l_comment", pat, False)
+        ms, _res = timed(lambda p=pat: col.scan(p), 3)
+        report.append(("l_comment", pat, False, ms, n_rows, hits, pruned))
+        res = col.scan(pat, negate=True)
+        n_hits, n_pruned = assert_same(res, eng, "l_comment", pat, True)
+        report.append(("l_comment", pat, True, None, n_rows, n_hits,
+                       n_pruned))
+    pat = TABLE_PATTERNS[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before = k3_launches()
+    res = eng.scan_streaming("l_comment", pat, device=device)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in k3_launches().items()}
+    hits, pruned = assert_same(res, eng, "l_comment", pat, False)
+    if (launched["dfa_walk"] < eng.reader.num_row_groups()
+            or launched["stream_matcher"]):
+        raise AssertionError(f"scan_streaming of {pat!r} launched {launched}")
+    log(f"scan_streaming l_comment ~ {pat!r}: {stream_ms:.1f} ms, launches "
+        f"{launched}; equal to native scan")
+    t0 = time.perf_counter()
+    rows = eng.matching_rows("l_comment", pat, device=device)
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    cpu_rows = scan.match_rows(eng.reader.prescan("l_comment", pad_strings=8),
+                               pat, device="cpu")
+    if not (np.array_equal(rows, cpu_rows) and len(rows) == hits):
+        raise AssertionError(f"matching_rows of {pat!r} on the card differs "
+                             "from match_rows on the CPU or from the page "
+                             "counts")
+    log(f"matching_rows l_comment ~ {pat!r}: {len(rows)} rows in "
+        f"{rows_ms:.1f} ms on the card, equal to the CPU's and to the page "
+        "scan's matches")
+    n_so = len(list(build.BUILD_DIR.glob("*.so")))
+    t0 = time.perf_counter()
+    res = col.scan(COLD_TABLE_PATTERN)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    if len(list(build.BUILD_DIR.glob("*.so"))) != n_so:
+        raise AssertionError("a table-DFA pattern's first query built a "
+                             "kernel")
+    hits, pruned = assert_same(res, eng, "l_comment", COLD_TABLE_PATTERN,
+                               False)
+    report.append(("l_comment", f"{COLD_TABLE_PATTERN} (cold: first query, "
+                   "no nvcc run)", False, cold_ms, n_rows, hits, pruned))
+    return report, first_query
+
+
+@contextlib.contextmanager
+def plain_table_walk():
+    """Routes the page walk of the table DFA through its plain loop on the
+    card (the route before K3), for a "before" reading in the same run."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dfa_walk,
+        stream_matcher,
+    )
+
+    real = dfa_walk.stream_walk
+
+    def plain(chunked, plen, nn, dfa, steps=None):
+        steps = min(int(steps), chunked.shape[0] * stream_matcher.CHUNK)
+        return dfa_walk.stream_walk_plain(
+            stream_matcher.unchunk_stream(chunked, steps), plen, nn, dfa,
+            steps)
+
+    dfa_walk.stream_walk = plain
+    try:
+        yield
+    finally:
+        dfa_walk.stream_walk = real
+
+
+# The operations K3's walks need, one machine instruction each, as the byte
+# loops of csrc/dfa_walk.cu state them (the page walk's boundary control is
+# K1's): {what: (count, pipe)}, "fma" for the multiply-add pipe.  The loads
+# of the class and of the entry are memory, not operations, and the loop's
+# own upkeep is left out (a 16-byte chunk unrolled keeps one test a byte:
+# the lane's `done < nn`).
+K3_PAGE_OPS_PER_BYTE = {
+    "take the byte out of the chunk": (1, "int32"),
+    "entry index state * n_classes + class": (1, "fma"),
+    "split the entry: next state, accept": (2, "int32"),
+    "prefix byte? prefix_left - 1, the prefix's end, a zero length": (
+        4, "int32"),
+    "shift amount 8 * (4 - prefix_left)": (1, "fma"),
+    "shift the length byte in, or it into ctr": (2, "int32"),
+    "ctr - 1, the value's end, either end": (3, "int32"),
+    "add the accept (select, add), count the value": (3, "int32"),
+    "next prefix_left, ctr, state (two selects each)": (6, "int32"),
+    "the lane's test done < nn": (1, "int32"),
+}
+K3_VALUE_OPS_PER_BYTE = {
+    "take the byte out of the chunk": (1, "int32"),
+    "entry index state * n_classes + class": (1, "fma"),
+    "next state = entry & 0x7fff": (1, "int32"),
+}
+K3_VALUE_OPS_PER_VALUE = 1  # accept = entry >> 15, once a value
+MEMORY_OPS = ("LDS", "LDG", "LDC", "LD", "LDL", "ULDC", "STS", "STG", "ST",
+              "STL")
+
+
+def needed_ops(table: dict) -> float:
+    """The number a bound uses for the operations of `table` (a byte's):
+    those on the int32 lanes, or half of all of them where that is more
+    (an SM issues 128 lanes a clock, twice its int32 lanes)."""
+    total = sum(n for n, _pipe in table.values())
+    int32 = sum(n for n, pipe in table.values() if pipe == "int32")
+    return max(int32, total / 2)
+
+
+def loop_ops(kernel: str) -> dict:
+    """What the compiler made of K3's byte loop in the staged variant of
+    `kernel` (the innermost loop that loads from shared memory): machine
+    instructions, the memory ones among them, those on the int32 lanes,
+    registers and spills.  A reading beside the bound, not its source."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import build
+
+    (name, info), = [kv for kv in build.inspect_source(
+        build.read_csrc("dfa_walk.cu"), loop_containing="LDS").items()
+        if f"{kernel}ILb1E" in kv[0]]
+    loop = info["loop_instructions"]
+    total = sum(loop.values())
+    memory = sum(n for op, n in loop.items() if op in MEMORY_OPS)
+    int32 = total - memory - sum(n for op, n in loop.items()
+                                 if op in FMA_PIPE + SLOT_ONLY)
+    return {"registers": info["registers"], "spill_bytes": info["spill_bytes"],
+            "instructions": total, "memory": memory, "int32_ops": int32,
+            "opcodes": loop}
+
+
+def time_variants(walk, dfas: dict) -> dict:
+    """{label: (device-memory ms, staged ms)} of `walk(dfa, staged)` under
+    each table of `dfas`, the least of 3 alternating rounds of 10 calls."""
+    best = {}
+    for _ in range(3):
+        for label, dfa in dfas.items():
+            ms = tuple(timed(lambda st=st: walk(dfa, st), 10)[0]
+                       for st in (False, True))
+            best[label] = tuple(map(min, zip(best.get(label, ms), ms)))
+    return best
+
+
+def time_table_kernel(col, str_chars, str_lens, ops_per_s):
+    """(f) K3 at the main path's shapes: the page walk on the larger
+    l_comment bucket and the per-value walk on l_comment's str_padded, each
+    beside its plain version, on the card alone and against its bound from
+    the operations the walk needs (`K3_PAGE_OPS_PER_BYTE`); both variants
+    under the pattern's table and a 153,856-byte random one; then one warm
+    query's wall time, launches and idle share with K3 and, in the same
+    run, with the plain loop."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dfa_walk,
+        stream_matcher,
+    )
+    from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+
+    pat = TABLE_PATTERNS[0]
+    dfa = compile_pattern(pat)
+    table_bytes = len(dfa_walk.pack_table(dfa).data)
+    staged = dfa_walk.stages(torch.cuda.current_device(), False, table_bytes)
+    bk = max(col._buckets, key=lambda b: b["stream"].numel())
+    n = bk["walk_plen"].shape[0]
+    args = (bk["walk_plen"], bk["walk_nn"], dfa, bk["steps"])
+    plain_stream = stream_matcher.unchunk_stream(bk["stream"], bk["steps"])
+    t = best_of({"kernel": lambda: dfa_walk.stream_walk(bk["stream"], *args)},
+                20)
+    plain_ms, (h0, s0) = timed(
+        lambda: dfa_walk.stream_walk_plain(plain_stream, *args), 1)
+    del plain_stream
+    h1, s1 = dfa_walk.stream_walk(bk["stream"], *args)
+    err = max(int((h1 - h0).abs().max()), int((s1 - s0).abs().max()))
+    on_card = min(queued_ms(lambda: dfa_walk.stream_walk(bk["stream"], *args),
+                            20) for _ in range(3))
+    active = torch.where(bk["walk_nn"] > 0,
+                         bk["walk_plen"].clamp(max=bk["steps"]), 0)
+    walked = int(active.sum())
+    per_byte = needed_ops(K3_PAGE_OPS_PER_BYTE)
+    ops = loop_ops("dfa_stream_kernel")
+    n_bytes = walked + 16 * n + table_bytes
+    b_ms, b_by = bound(n_bytes, per_byte * walked, ops_per_s)
+    log(f"K3 page walk {pat!r} at {tuple(bk['stream'].shape)} u8, table "
+        f"{table_bytes} bytes in {variant_name(staged)}: {t['kernel']:.4f} ms "
+        f"per call (least of 6 rounds of 20), {on_card:.4f} ms on the card "
+        f"alone; plain loop {plain_ms:.1f} ms; {walked} bytes walked; the walk "
+        f"needs {per_byte:g} int32 operations a byte "
+        f"({sum(n for n, _p in K3_PAGE_OPS_PER_BYTE.values())} in all: "
+        f"{K3_PAGE_OPS_PER_BYTE}); {n_bytes} bytes moved: bound {b_ms:.4f} ms "
+        f"by {b_by} ({100 * b_ms / on_card:.1f}% of the time on the card); "
+        f"the compiled byte loop: {ops['instructions']} machine instructions, "
+        f"{ops['memory']} memory, {ops['int32_ops']} on the int32 lanes "
+        f"({ops['opcodes']}), {ops['registers']} registers, "
+        f"{ops['spill_bytes']} spill bytes")
+    k3 = {"max_abs_err": err, "ms": t["kernel"], "device_ms": on_card,
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": None, "shape": f"stream {list(bk['stream'].shape)}, "
+          f"{walked} bytes walked, {dfa.n_states} states",
+          "ops_per_byte": per_byte, "loop_instructions": ops["instructions"]}
+
+    t = best_of({"kernel": lambda: dfa_walk.value_walk(str_chars, str_lens,
+                                                       dfa),
+                 "plain": lambda: dfa_walk.value_walk_plain(str_chars,
+                                                            str_lens, dfa)},
+                5)
+    got = dfa_walk.value_walk(str_chars, str_lens, dfa)
+    err = int((got != dfa_walk.value_walk_plain(str_chars, str_lens,
+                                                dfa)).sum())
+    on_card = min(queued_ms(lambda: dfa_walk.value_walk(str_chars, str_lens,
+                                                        dfa), 20)
+                  for _ in range(3))
+    walked = int(str_lens.clamp(max=str_chars.shape[1]).sum())
+    count = str_chars.shape[0]
+    v_per_byte = needed_ops(K3_VALUE_OPS_PER_BYTE)
+    vops = loop_ops("dfa_values_kernel")
+    n_bytes = walked + 5 * count + table_bytes
+    v_ms, v_by = bound(n_bytes, v_per_byte * walked
+                       + K3_VALUE_OPS_PER_VALUE * count, ops_per_s)
+    log(f"K3 per-value walk {pat!r} on str_padded {tuple(str_chars.shape)}: "
+        f"{t['kernel']:.4f} ms per call, {on_card:.4f} ms on the card alone, "
+        f"plain {t['plain']:.4f} ms; {walked} bytes walked; the walk needs "
+        f"{v_per_byte:g} int32 operations a byte and "
+        f"{K3_VALUE_OPS_PER_VALUE} a value; {n_bytes} bytes moved: bound "
+        f"{v_ms:.4f} ms by {v_by} ({100 * v_ms / on_card:.1f}% of the time "
+        f"on the card); the compiled byte loop: {vops['instructions']} "
+        f"machine instructions ({vops['memory']} memory, "
+        f"{vops['int32_ops']} int32), {vops['registers']} registers")
+    k3.update(values_shape=f"chars {list(str_chars.shape)}",
+              values_max_abs_err=err, values_ms=t["kernel"],
+              values_device_ms=on_card, values_plain_ms=t["plain"],
+              values_bound_ms=v_ms, values_bound_by=v_by)
+
+    # where the table sits: both variants at the path's shapes, under the
+    # pattern's table and a random 300 x 256 one (153,856 bytes)
+    big = random_dfa(np.random.default_rng(59), 300, 256)
+    dfas = {f"{table_bytes} B": dfa,
+            f"{len(dfa_walk.pack_table(big).data)} B": big}
+    variants = {
+        "page walk": time_variants(
+            lambda d, st: dfa_walk.stream_walk(
+                bk["stream"], bk["walk_plen"], bk["walk_nn"], d, bk["steps"],
+                staged=st), dfas),
+        "per-value walk": time_variants(
+            lambda d, st: dfa_walk.value_walk(str_chars, str_lens, d,
+                                              staged=st), dfas)}
+    for walk, by_table in variants.items():
+        values = walk == "per-value walk"
+        log(f"K3 {walk}, table in device memory / staged in shared memory "
+            "(least of 3 rounds of 10): " + "; ".join(
+                f"{label} table {dev_ms:.4f} / {sh_ms:.4f} ms, the wrapper "
+                f"picks " + variant_name(dfa_walk.stages(
+                    torch.cuda.current_device(), values,
+                    len(dfa_walk.pack_table(dfas[label]).data)))
+                for label, (dev_ms, sh_ms) in by_table.items()))
+    k3["variants_ms"] = {walk: {label: {"device_memory": d, "shared": sh}
+                                for label, (d, sh) in by_table.items()}
+                         for walk, by_table in variants.items()}
+
+    # the warm query, with K3 and with the plain loop it replaces
+    for label, ctx in (("K3", contextlib.nullcontext()),
+                       ("plain loop", plain_table_walk())):
+        with ctx:
+            ms, _res = timed(lambda: col.scan(pat), 1)
+            wall, busy, launches, by_name = device_profile(
+                lambda: col.scan(pat),
+                ROOT / "build" / "profile" / f"table_{label[:5]}.json",
+                cpu=label == "K3",
+                launches=sum(b["has_plain"] for b in col._buckets))
+        k3_dev = sum(v for k, v in by_name.items() if "dfa_stream" in k)
+        line = (NOT_PROFILED if busy is None else
+                f"wall {wall:.3f} ms under the profiler, device busy "
+                f"{busy:.4f} ms ({100 * (1 - busy / wall):.2f}% idle), "
+                f"{launches} kernel launches, K3 {k3_dev:.4f} ms")
+        log(f"warm query l_comment ~ {pat!r} with {label}: {ms:.3f} ms "
+            f"(CUDA events); profile: {line}")
+        k3[f"query_ms_{label.split()[0].lower()}"] = ms
+    return k3
+
+
+def run_table_sharded(device, fixtures: Path):
+    """(d) A one-rank NCCL `ScanEngine(mesh).scan` of the first table-DFA
+    pattern against the native exact scan, K3's launches counted."""
+    import numpy as np
+
+    from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
+    from duckdb_parquet_parser_tpu_torch.parallel.mesh import make_mesh
+
+    path = fixtures / f"lineitem_{MAIN_ROWS}.parquet"
+    pat = TABLE_PATTERNS[0]
+    eng = ScanEngine(str(path), mesh=make_mesh(device, "nccl"))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.scan("l_comment", pat)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = k3_launches()
+    ref = eng.cold_scan("l_comment", pat, exact_counts=True, stats_prune=False)
+    keep = res.page_gid >= 0
+    order = np.argsort(res.page_gid[keep], kind="stable")
+    ro = np.argsort(ref.page_gid, kind="stable")
+    if not (np.array_equal(res.page_gid[keep][order], ref.page_gid[ro])
+            and np.array_equal(res.match_counts[keep][order],
+                               ref.match_counts[ro])
+            and res.totals.tolist() == [int(ref.match_counts.sum()),
+                                        int(ref.value_counts.sum())]):
+        raise AssertionError(f"the sharded scan of {pat!r} disagrees with the "
+                             "native host scan")
+    if launches["dfa_walk"] < 1 or launches["stream_matcher"]:
+        raise AssertionError(f"the sharded scan of {pat!r} launched {launches}")
+    log(f"one rank, nccl: scan l_comment ~ {pat!r} {ms:.1f} ms, totals "
+        f"{res.totals.tolist()}, launches {launches}; equal to native scan")
+    return launches
+
+
 def pattern_tuples():
     """Every pattern tuple whose stream-matcher kernel is built up front,
     in one nvcc run; a child rank that asks for the same list loads that
@@ -1798,6 +2302,8 @@ def main() -> int:
     from duckdb_parquet_parser_tpu_torch.host import build as host_build
     from duckdb_parquet_parser_tpu_torch.ops import strings
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        build,
+        dfa_walk,
         dict_lookup,
         stream_matcher,
     )
@@ -1806,15 +2312,20 @@ def main() -> int:
     lib = host_build.build_library()
     log(f"native host library: {time.perf_counter() - t0:.1f} s "
         f"({lib.name})")
-    tuples = pattern_tuples()
+    tuples = [tuple(strings.pattern_ir(p) for p in t)
+              for t in pattern_tuples()]
+
+    # one nvcc run a source, all started together
     t0 = time.perf_counter()
-    stream_matcher.prepare([tuple(strings.pattern_ir(p) for p in t)
-                            for t in tuples])
-    t1 = time.perf_counter()
+    build.build_sources([stream_matcher.source(tuples),
+                         build.read_csrc("dict_lookup.cu"),
+                         build.read_csrc("dfa_walk.cu")])
+    stream_matcher.prepare(tuples)
     dict_lookup.prepare()
-    log(f"kernel build: {t1 - t0:.1f} s for {len(tuples)} stream-matcher "
-        f"tuples in one nvcc run, {time.perf_counter() - t1:.1f} s for the "
-        "dictionary kernels")
+    dfa_walk.prepare()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s, three nvcc runs at "
+        f"once ({len(tuples)} stream-matcher tuples, the dictionary kernels, "
+        "the table-DFA walk)")
 
     check_stream_kernel(device)
     check_dict_kernel(device)
@@ -1891,6 +2402,24 @@ def main() -> int:
     k1, k2 = time_kernels(col, dcol, device, ops_per_s)
     k2.update(time_decode_lookup(k_decode["table"], k_decode["gidx"],
                                  ops_per_s))
+
+    # the table-DFA path (K3), counted apart: (a) and (b) hold the kernel
+    # against its plain version, (c)-(e) drive the path, (f) times it
+    str_chars, str_lens = check_table_kernels(col, eng, deng, device)
+    reset_launches()
+    table_report, table_per_query = run_table_dfa_path(col, eng, device)
+    table_launches = k3_launches()
+    for column, pat, neg, ms, rows, hits, pruned in table_report:
+        timing = ("" if ms is None else
+                  f"{ms:.3f} ms/query, {rows / ms * 1e3:.4g} rows/s, ")
+        log(f"{column} ~ {pat!r}{' negate' if neg else ''}: {timing}{hits} "
+            f"hits, {pruned} pages pruned; equal to native scan")
+    log(f"table-DFA path launches: {table_launches}; one resident query: "
+        f"{table_per_query}")
+    if table_launches["dfa_walk"] <= 0 or table_launches["stream_matcher"]:
+        raise AssertionError(f"the table-DFA path launched {table_launches}")
+    k3 = time_table_kernel(col, str_chars, str_lens, ops_per_s)
+    del str_chars, str_lens
     # the front door and the sharded paths, counted apart again (after the
     # profiles: the profiler loses device events once the process group
     # and the child ranks have been on the card)
@@ -1901,6 +2430,7 @@ def main() -> int:
     t1 = time.perf_counter()
     one = run_sharded_one_rank(eng, deng, fixtures)
     sharded_launches = one["launches"]
+    table_sharded = run_table_sharded(device, fixtures)
     t2 = time.perf_counter()
     child_reports = run_child_ranks(one["answers"], one["files"],
                                     ROOT / "build" / "ranks")
@@ -1947,8 +2477,9 @@ def main() -> int:
         table4, gidx4, ops_per_s, prefix="emission_four_ranks",
         where=f"inside the emission decode of city at {SHARD_RANKS} ranks "
               "(rank 0's shard)"))
-    for name, entry in (("K1", k1), ("K2", k2)):
+    for name, entry in (("K1", k1), ("K2", k2), ("K3", k3)):
         if (entry["max_abs_err"] != 0 or entry.get("decode_max_abs_err", 0)
+                or entry.get("values_max_abs_err", 0)
                 or entry.get("emission_max_abs_err", 0)
                 or entry.get("emission_four_ranks_max_abs_err", 0)):
             raise AssertionError(f"{name} differs from its plain version")
@@ -1976,6 +2507,10 @@ def main() -> int:
              r["launches"]["dict_lookup"] for r in child_reports],
          "launches_per_query": {q: v["dict_lookup"]
                                 for q, v in per_query.items()}, **k2},
+        {"name": "dfa_walk", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": table_launches["dfa_walk"],
+         "launches_per_query": {"l_comment": table_per_query["dfa_walk"]},
+         "launches_sharded_one_rank": table_sharded["dfa_walk"], **k3},
     ]
     torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,9 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of `duckdb_parquet_parser_tpu` (the JAX reference, which stays in the
 repository unchanged).  Module names mirror the reference so every port
 module has an obvious counterpart.  The package imports `torch` and never
-`jax`; it reuses only the reference's JAX-free host layer (native prescan
-bindings, writer, schema, the regex and register-machine compilers, config).
+`jax` and nothing of the reference: it keeps its own copies of the host
+layer (native prescan bindings, writer, schema, config) and of the regex
+and register-machine compilers.
 
 Public entry points: `models.scan.ScanEngine` and `ResidentColumn`, the
 command line (`python -m duckdb_parquet_parser_tpu_torch.cli`) and, for runs
@@ -15,7 +16,9 @@ an explicit `device`; CUDA tensors go through the kernels in `ops/kernels/`
 and CPU tensors through their plain PyTorch versions.
 """
 
-__all__ = ["ScanEngine", "ResidentColumn", "ParquetReader"]
+from .version import __version__
+
+__all__ = ["__version__", "ScanEngine", "ResidentColumn", "ParquetReader"]
 
 _LAZY = {
     "ScanEngine": ("duckdb_parquet_parser_tpu_torch.models.scan", "ScanEngine"),

@@ -67,13 +67,17 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
 
-    from .parallel.mesh import (
-        distributed_init_from_env,
-        make_mesh,
-        rank_device,
-    )
+    from .parallel.mesh import closing_group, distributed_init_from_env
 
-    formed = distributed_init_from_env(args.backend)
+    with closing_group():
+        return _run(args, distributed_init_from_env(args.backend))
+
+
+def _run(args, formed: bool) -> int:
+    """The command `args.cmd` on the mesh of the group that was `formed`
+    (else of one rank); prints on rank 0."""
+    from .parallel.mesh import make_mesh, rank_device
+
     mesh = make_mesh(rank_device(args.device), args.backend)
     n_proc = mesh.size
     pid = mesh.rank

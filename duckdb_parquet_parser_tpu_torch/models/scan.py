@@ -10,7 +10,8 @@ pages over its ranks.  The resident flow: prescan the column on the
 host, upload the raw page payloads once (byte streams in the stream
 matcher's chunked layout, in length buckets — or, for big pages, as
 value-boundary segments), then per query walk the PLAIN bytes through the
-stream matcher (kernel K1), count the accepted values of dictionary pages
+stream matcher (kernel K1, or K3's table-DFA walk for a pattern outside the
+register-machine family), count the accepted values of dictionary pages
 in the dictionary kernel (K2), and report matches per page.  Pages with
 zero matches are pruned.  `scan_batched` and `scan_streaming` are the
 one-shot device scans of a big or cold file: pages go to the device in
@@ -44,7 +45,7 @@ from ..host.writer import ColumnSpec, ParquetWriter
 from ..ops import decode as _decode
 from ..ops import scan as _scan
 from ..ops import strings as _strings
-from ..ops.kernels import dict_lookup, stream_matcher
+from ..ops.kernels import dfa_walk, dict_lookup, stream_matcher
 from ..ops.regex import (
     UnsupportedPattern,
     anchored_prune_range,
@@ -92,6 +93,8 @@ class _BlockWalker:
         if self.cuda:
             if irs:
                 stream_matcher.prepare([irs])
+            if dfa is not None:
+                dfa_walk.prepare()
             self.copy_stream = torch.cuda.Stream(self.device)
             self.slots = [{"buf": None, "free": None} for _ in range(2)]
             self.turn = 0
@@ -597,9 +600,9 @@ def build_example_batch(tmpdir: str, *, rows: int = 400):
 def single_chip_forward(batch, pattern: str, *, device):
     """Returns (fn, example_args): one fused decode + match + count step on
     a page batch on `device` — the raw-payload byte walk for PLAIN pages
-    (kernel K1 for a register-machine pattern), the dictionary path for the
-    rest: levels, index planes, and the per-entry accepts looked up through
-    the dictionary kernel's gather entry (K2).  `fn(*example_args)` gives
+    (kernel K1 for a register-machine pattern, K3 for a table DFA), the
+    dictionary path for the rest: levels, index planes, and the per-entry
+    accepts looked up through the dictionary kernel's gather entry (K2).  `fn(*example_args)` gives
     the [N] per-page match counts.  (The reference takes a compiled DFA
     for its one-hot table walk; the kernel's register machine is traced
     from the pattern, so this takes the pattern.)"""

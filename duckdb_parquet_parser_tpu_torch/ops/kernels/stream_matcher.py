@@ -116,13 +116,24 @@ def tag_of(irs) -> str:
     return _walk(tuple(irs))[0]
 
 
-def prepare(ir_tuples) -> None:
-    """Builds one library holding a kernel for every tuple not built yet
-    (one nvcc run) and registers their launch functions."""
+def _pending(ir_tuples) -> dict:
+    """{tag: tuple} of the tuples of `ir_tuples` not built yet."""
     todo = {}
     for irs in ir_tuples:
         todo.setdefault(tag_of(irs), tuple(irs))
-    todo = {t: irs for t, irs in todo.items() if t not in _registry}
+    return {t: irs for t, irs in todo.items() if t not in _registry}
+
+
+def source(ir_tuples) -> str:
+    """The CUDA source `prepare(ir_tuples)` builds (to start its `nvcc` run
+    beside others: `build.build_sources`)."""
+    return render(list(_pending(ir_tuples).values()))
+
+
+def prepare(ir_tuples) -> None:
+    """Builds one library holding a kernel for every tuple not built yet
+    (one nvcc run) and registers their launch functions."""
+    todo = _pending(ir_tuples)
     if not todo:
         return
     lib = build.load_source(render(list(todo.values())))

@@ -12,10 +12,11 @@ resident column (models/scan.py) drives it, and the one-shot
 `ScanEngine.scan` goes through a resident column too.
 
 Per query: PLAIN pages walk their raw payload bytes through the stream
-matcher (kernel K1 for register-machine patterns); dictionary pages count
-the per-entry accepts of the pattern over their resident level and index
-planes in the dictionary kernel (K2's fused count entry).  `negate` inverts the per-value
-match among participating values.  Pages with a zero match count are the
+matcher (kernel K1 for register-machine patterns, K3's page walk for a
+table DFA); dictionary pages count the per-entry accepts of the pattern
+over their resident level and index planes in the dictionary kernel (K2's
+fused count entry).  `negate` inverts the per-value match among
+participating values.  Pages with a zero match count are the
 pruned ones.
 """
 
@@ -31,7 +32,7 @@ from ..host import bindings
 from ..host.batch import to_tensor
 from . import decode as _decode
 from . import strings
-from .kernels import dict_lookup, stream_matcher
+from .kernels import dfa_walk, dict_lookup, stream_matcher
 from .regex import UnsupportedPattern, compile_pattern, like_to_regex
 
 SPLIT_TRIGGER = 4096  # split when any page's payload exceeds this
@@ -100,21 +101,6 @@ class PageMatchResult:
         return self.page_gid[self.match_counts > 0]
 
 
-def dfa_match_device(chars: torch.Tensor, lens: torch.Tensor, table,
-                     accept) -> torch.Tensor:
-    """`dfa_match` on tensors: chars [L, P] u8, lens [L] int32 on one
-    device; returns [L] bool accepts there."""
-    dev = chars.device
-    tflat = torch.as_tensor(np.asarray(table, dtype=np.int32)).reshape(-1).to(
-        dev)
-    acc = torch.as_tensor(np.asarray(accept, dtype=bool)).to(dev)
-    state = torch.zeros(chars.shape[0], dtype=torch.int32, device=dev)
-    for j in range(chars.shape[1]):
-        nxt = tflat[(state * 256 + chars[:, j].to(torch.int32)).long()]
-        state = torch.where(j < lens, nxt, state)
-    return acc[state.long()]
-
-
 def _value_accepts(batch, dfa, *, negate: bool = False, device):
     """Per-value accept / participation matrices in VALUE space, computed
     on `device`.
@@ -140,10 +126,9 @@ def _value_accepts(batch, dfa, *, negate: bool = False, device):
 
     has_plain = "str_padded" in arrays and arrays["str_padded"].shape[0] > 0
     if has_plain and any_plain:
-        match = dfa_match_device(
+        match = dfa_walk.value_walk(
             to_tensor(arrays["str_padded"], device),
-            to_tensor(arrays["str_lens"], device, dtype=np.int32),
-            dfa.table, dfa.accept)
+            to_tensor(arrays["str_lens"], device, dtype=np.int32), dfa)
         start = to_tensor(arrays["str_nn_start"][:-1], device).long()
         entry = (start[:, None] + nn_idx).clamp(0, match.shape[0] - 1)
         plain_part = nonnull & ~is_dict
@@ -152,10 +137,9 @@ def _value_accepts(batch, dfa, *, negate: bool = False, device):
 
     has_dict = "dict_padded" in arrays and int(batch.dims.get("dict_n", 0)) > 0
     if has_dict and any_dict:
-        dict_match = dfa_match_device(
+        dict_match = dfa_walk.value_walk(
             to_tensor(arrays["dict_padded"], device),
-            to_tensor(arrays["dict_lens"], device, dtype=np.int32),
-            dfa.table, dfa.accept)
+            to_tensor(arrays["dict_lens"], device, dtype=np.int32), dfa)
         dict_idx, ok = _decode.decode_dict_indices(core, nn_idx, batch.nn_cap,
                                                    nonnull=nonnull)
         g = (core["page_dict_base"][:, None] + dict_idx.clamp(min=0)).clamp(
@@ -326,14 +310,11 @@ def resolve_matchers(patterns):
 
 def walk_hits(stream, plen, nn, irs, dfa, steps) -> torch.Tensor:
     """[K, n] int32 accept counts of the byte walk over the resident
-    stream (`resident_stream`'s chunked layout).  The table-DFA walk is
-    plain PyTorch over the [steps, n] stream, which it unpacks here."""
+    stream (`resident_stream`'s chunked layout): K1 for register machines,
+    K3's page walk for one table DFA."""
     if irs:
         return stream_matcher.match_stream(stream, plen, nn, irs, steps)[0]
-    hits, _seen = strings.match_payload_stream(
-        stream_matcher.unchunk_stream(stream, steps), plen, nn, dfa.table,
-        dfa.accept, steps)
-    return hits[None]
+    return dfa_walk.stream_walk(stream, plen, nn, dfa, steps)[0][None]
 
 
 def device_scan_step(core, stream, walk_plen, walk_nn, table, *, irs, dfa,

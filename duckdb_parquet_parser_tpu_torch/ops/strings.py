@@ -10,19 +10,20 @@ transitions advance; the state resets at each value start; at each value
 end the lane adds the accept bit to `hits[k]` (a zero-length value adds
 `accept_empty`).  The lane stops after `nn` values or `plen` bytes.
 
-This is the plain version the CUDA stream-matcher kernel is held against
-(ops/kernels/stream_matcher.py), and the path CPU tensors take.  It walks
-the [steps, N] u8 stream (lane j's bytes down column j); the resident
-column keeps the kernel's chunked layout, which
+This is the plain version the CUDA kernels are held against (K1,
+ops/kernels/stream_matcher.py, for register machines; K3,
+ops/kernels/dfa_walk.py, for a table DFA), and the path CPU tensors take.
+It walks the [steps, N] u8 stream (lane j's bytes down column j); the
+resident column keeps the kernels' chunked layout, which
 `stream_matcher.unchunk_stream` turns back into this one.
 
 Matchers: register machines (the reference's bit-parallel programs, or
 Shift-And chains for pure substring chains) come as traced IRs
 (ops/bitprog.py); patterns outside both families use the table DFA as a
-plain gather (`dfa_transition`).  The reference's MXU one-hot DFA
+plain gather (`dfa_spec`).  The reference's MXU one-hot DFA
 (`ops/mxu_dfa.py`) existed only to avoid TPU gathers, and its 2-byte pair
-step (`make_bitprog_transition_pair`) is off by default there; neither is
-ported.
+step (`make_bitprog_transition_pair`) is off by default there; neither
+mechanism is ported (K3 walks the table with loads).
 """
 
 from __future__ import annotations

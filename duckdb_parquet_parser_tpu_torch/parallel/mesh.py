@@ -23,6 +23,7 @@ result boundary, where every rank gets the whole array.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 from dataclasses import dataclass
@@ -117,6 +118,33 @@ def distributed_init_from_env(backend: str) -> bool:
                                 timeout=GROUP_TIMEOUT)
         return True
     return False
+
+
+def close_group(barrier: bool = True) -> None:
+    """Ends this process's process group, where one is alive: a barrier
+    (unless `barrier` is False), so that no rank leaves while another still
+    talks to the rendezvous store (rank 0 serves it), then
+    `destroy_process_group`.  A process that exits with its group alive may
+    abort in the group's C++ destructors ("terminate called without an
+    active exception")."""
+    if dist.is_initialized():
+        if barrier:
+            dist.barrier()
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def closing_group():
+    """Ends the process group alive when the block ends, whoever formed it
+    (`distributed_init_from_env`, or `make_mesh`'s group of one): after a
+    barrier when the block ends normally, at once when it raises (another
+    rank may never reach the barrier)."""
+    try:
+        yield
+    except BaseException:
+        close_group(barrier=False)
+        raise
+    close_group()
 
 
 def rank_device(device: str) -> str:

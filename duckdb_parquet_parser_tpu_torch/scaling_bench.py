@@ -182,14 +182,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from .parallel.mesh import (
+        closing_group,
         distributed_init_from_env,
         make_mesh,
         rank_device,
     )
 
-    distributed_init_from_env(args.backend)
-    return run(make_mesh(rank_device(args.device), args.backend),
-               rows=args.rows, pattern=args.pattern, reps=args.reps)
+    with closing_group():
+        distributed_init_from_env(args.backend)
+        return run(make_mesh(rank_device(args.device), args.backend),
+                   rows=args.rows, pattern=args.pattern, reps=args.reps)
 
 
 if __name__ == "__main__":

@@ -2,13 +2,13 @@
 
 Port of `duckdb_parquet_parser_tpu/utils/tracing.py`: every pipeline stage
 can be wrapped so its host and device work shows up named in a
-torch.profiler timeline, and on a CUDA machine as an NVTX range too.  (The
-reference's decorator form `annotate` has no caller in either package and is
-not carried over.)
+torch.profiler timeline, and on a CUDA machine as an NVTX range too;
+`annotate` is the decorator form of `stage`.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from contextlib import contextmanager
@@ -49,3 +49,14 @@ def stage(name: str):
             if nvtx:
                 torch.cuda.nvtx.range_pop()
 
+
+def annotate(name: str):
+    """Decorator form of `stage`: every call of the function is a span
+    named `name`."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            with stage(name):
+                return fn(*a, **kw)
+        return wrapped
+    return deco

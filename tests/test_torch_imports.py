@@ -1,9 +1,10 @@
 """The port stands alone: in a fresh interpreter that refuses to import
 jax, jaxlib, pyarrow or the JAX package `duckdb_parquet_parser_tpu`, every
 port module imports, and a resident scan runs on the CPU over the port's
-own native library, built from `duckdb_parquet_parser_tpu_torch/host/native/`;
-so do the decode entry points, the command line, `ScanEngine.build_index`
-and a one-rank `distributed_scan`."""
+own native library, built from `duckdb_parquet_parser_tpu_torch/host/native/`
+(a register-machine pattern and a table-DFA one); so do the decode entry
+points, `matching_rows` of both kinds of pattern, the command line,
+`ScanEngine.build_index` and a one-rank `distributed_scan`."""
 
 from __future__ import annotations
 
@@ -59,6 +60,9 @@ SCRIPT = BLOCK + textwrap.dedent("""
     res = col.scan("special.*requests")
     assert int(res.match_counts.sum()) == 40, res.match_counts
     assert int(res.value_counts.sum()) == 160 + 600, res.value_counts
+    # a pattern outside the register-machine family: the table-DFA walk
+    res = col.scan("(cial|ly)+ req", negate=True)
+    assert int(res.match_counts.sum()) == 160 + 600 - 80, res.match_counts
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     lib = build.build_library()
     assert lib.name.startswith("libdpqhost_torch-"), lib
@@ -114,6 +118,9 @@ DECODE_SCRIPT = BLOCK + textwrap.dedent("""
     got = ScanEngine(path).matching_rows("s", "special.*requests",
                                          device="cpu")
     want = [i for i, v in enumerate(s) if v == words[0]]
+    assert got.tolist() == want, (got[:8], want[:8])
+    got = ScanEngine(path).matching_rows("s", "(cial|ly)+ req", device="cpu")
+    want = [i for i, v in enumerate(s) if v in (words[0], words[3])]
     assert got.tolist() == want, (got[:8], want[:8])
 
     delta = ParquetReader({delta_path!r})

@@ -11,8 +11,10 @@ the child's stderr."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -24,6 +26,9 @@ from tests import fixtures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 150
+# what a rendezvous prints when its port was taken between `_free_port` and
+# the bind
+BIND_FAILED = re.compile(r"address already in use|EADDRINUSE", re.I)
 
 
 def _free_port() -> int:
@@ -36,8 +41,31 @@ def _free_port() -> int:
 
 def _launch_two(module: str, args: list[str], extra_env: dict) -> dict:
     """Runs `python -m <module> <args>` as two coordinated processes;
-    returns the JSON that process 0 printed last."""
-    port = _free_port()
+    returns the JSON that process 0 printed last.  `_free_port` closes its
+    socket before the children bind it, so another process may take the
+    port first: a pair whose rendezvous could not bind is started once more
+    on a fresh port.  A failure shows both processes' stderr."""
+    tries = []
+    for _attempt in range(2):
+        procs, ends = _run_pair(module, args, extra_env, _free_port())
+        tries.append("\n".join(f"process {i} (rc={p.returncode}):\n"
+                               f"{err[-3000:]}"
+                               for i, (p, (_o, err)) in enumerate(
+                                   zip(procs, ends))))
+        if not any(p.returncode for p in procs):
+            break
+        if not any(BIND_FAILED.search(err) for _o, err in ends):
+            break
+    assert not any(p.returncode for p in procs), (
+        f"{module} failed:\n" + "\n--- retried on a fresh port:\n".join(tries))
+    # results print on process 0 only (gloo writes a connection banner)
+    assert not [ln for ln in ends[1][0].splitlines() if ln.startswith("{")]
+    return json.loads(ends[0][0].strip().splitlines()[-1])
+
+
+def _run_pair(module, args, extra_env, port):
+    """The two processes of one rendezvous at `port`, run to their end (or
+    killed at TIMEOUT_S): (procs, [(stdout, stderr)])."""
     procs = []
     for pid in range(2):
         env = {k: v for k, v in os.environ.items()
@@ -55,12 +83,7 @@ def _launch_two(module: str, args: list[str], extra_env: dict) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, (_out, err) in zip(procs, ends):
-        assert p.returncode == 0, (
-            f"{module} process failed (rc={p.returncode}):\n{err[-3000:]}")
-    # results print on process 0 only (gloo writes a connection banner)
-    assert not [ln for ln in ends[1][0].splitlines() if ln.startswith("{")]
-    return json.loads(ends[0][0].strip().splitlines()[-1])
+    return procs, ends
 
 
 def _port(args):
@@ -174,3 +197,21 @@ def test_backend_and_device_are_explicit():
     with pytest.raises(ValueError, match="whole group"):
         M.survivor_mesh(M.PagesMesh(0, 1, mesh.device, object(), "gloo",
                                     (0,)), [0])
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+def test_closing_group_ends_a_group_of_one(raises):
+    """An entry point's group ends with it, also the group of one that
+    `make_mesh` forms itself, and also when the block raises."""
+    import torch.distributed as dist
+
+    from duckdb_parquet_parser_tpu_torch.parallel import mesh as M
+
+    with pytest.raises(RuntimeError) if raises else contextlib.nullcontext():
+        with M.closing_group():
+            assert M.make_mesh("cpu", "gloo").size == 1
+            assert dist.is_initialized()
+            if raises:
+                raise RuntimeError("a command failed")
+    assert not dist.is_initialized()
+    M.close_group()  # nothing alive: nothing to do

@@ -25,12 +25,16 @@ Then the table-DFA path (kernel K3, for patterns outside the
 register-machine family): K3's page walk against its plain version on both
 resident l_comment buckets for three such patterns and under random tables
 of 300 and 4,096 states (staged in shared memory / read from device memory),
-its per-value walk on l_comment's `str_padded` and city's `dict_padded`;
-the resident queries (plain and negated), `scan_streaming` and
-`matching_rows` against the native scan, with K3's launches counted and
-none of K1's; a never-seen table-DFA pattern's first query, which builds
-nothing; K3 timed beside its plain version and its bound, and one warm
-query profiled with K3 and with the plain loop it replaced.
+its per-value walk in every variant on l_comment's `str_padded`, city's
+`dict_padded` and 20 edge shapes of its blocks, grid and windows (rows
+1-300000, pitches 13-256,
+rows off 16-byte alignment); the resident queries (plain and negated),
+`scan_streaming` and `matching_rows` against the native scan, with K3's
+launches counted and none of K1's; a never-seen table-DFA pattern's first
+query, which builds nothing; K3 timed beside its plain version, its bound
+and (the per-value walk) the one-thread-a-row kernel it replaced and the
+32-byte sectors the rows need; one warm query profiled with K3 and with
+the plain loop it replaced, and the K3 launches its profiles record.
 Then the front door and the sharded paths: the command line (`cli.main`:
 file info, a regex scan on the card that prints what the native scan
 prints, `index ... l_comment` with its 18767 chunks); one rank over NCCL on
@@ -53,7 +57,8 @@ builds its own native host library and kernels from this checkout, and
 refuses any import of JAX or of the JAX package.
 
 Usage: python3 chip_smoke.py      (needs one CUDA device; no arguments)
-       (`--shard-rank R JOB.json` is how it starts its own child ranks)
+       (`--shard-rank R JOB.json` is how it starts its own child ranks,
+       `--profile-probe [late]` its fresh-process profiles of K3)
 
 Prints, in order: the card, build seconds, per-phase results, a JSON line
 {"kernels": [...]}, the card's name and power limit as nvidia-smi reports
@@ -180,19 +185,91 @@ FMA_PIPE = ("IMAD", "FFMA", "FMUL", "FADD")
 SLOT_ONLY = ("BRA", "BSSY", "BSYNC", "NOP")
 
 
+# The boundary control of a page walk (K1's, csrc/stream_matcher.cu.in, and
+# K3's, which copies it), one machine instruction each: {what: (count,
+# pipe)}.  "fma": an add, a move or a shift left by a constant, which the
+# multiply-add pipe can take (IMAD.IADD, IMAD.MOV, IMAD.SHL) beside the
+# int32 lanes; "int32": logic, compares, selects and right shifts.  The
+# loop's own upkeep is left out (a 16-byte chunk unrolled keeps one test a
+# byte: the lane's `done < nn`).
+PAGE_CONTROL_OPS_PER_BYTE = {
+    "take the byte out of the chunk": (1, "int32"),
+    "prefix byte?, the prefix's end, a zero length": (3, "int32"),
+    "prefix_left - 1": (1, "fma"),
+    "shift amount 8 * (4 - prefix_left)": (1, "fma"),
+    "shift the length byte in, or it into ctr": (2, "int32"),
+    "the value's end, either end": (2, "int32"),
+    "ctr - 1": (1, "fma"),
+    "select the accept": (1, "int32"),
+    "add it, count the value": (2, "fma"),
+    "next prefix_left, ctr, state (two selects each)": (6, "int32"),
+    "the lane's test done < nn": (1, "int32"),
+}
+
+
+_LOGIC = ("and", "or", "xor")
+
+
+def ir_ops(irs) -> dict:
+    """What the IR of the pattern tuple `irs` needs a byte: `nodes` (the IR
+    nodes that compute, one operation each); `fused`, those one
+    three-input logic instruction (LOP3) does with the node that uses them:
+    the single-use `and` with a constant under a zero test (LOP3 with a
+    predicate out), and a single-use logic node under another where the two
+    take at most three inputs; `either_pipe`, the adds, subtractions and
+    left shifts (all by a constant), which the multiply-add pipe can take
+    (IMAD.IADD, IMAD.SHL)."""
+    out = {"nodes": 0, "fused": 0, "either_pipe": 0}
+    for ir in irs:
+        computes = {i: (op, args) for i, (op, _kind, args)
+                    in enumerate(ir.nodes) if op not in ("const", "input")}
+        uses: dict = {}
+        for op, args in computes.values():
+            # a shift's second argument is its amount, not a node
+            for a in args[:1] if op in ("shl", "shr") else args:
+                uses[a] = uses.get(a, 0) + 1
+        out["nodes"] += len(computes)
+        inputs: dict = {}  # a logic node: the inputs of its LOP3
+        for i, (op, args) in computes.items():  # in order: args come first
+            if op in ("shl", "add", "sub"):
+                out["either_pipe"] += 1
+                continue
+            const = [ir.nodes[a][0] == "const" for a in args]
+            if op in ("ne", "eq"):
+                zero = any(c and ir.nodes[a][2] == (0,)
+                           for a, c in zip(args, const))
+                out["fused"] += zero and any(
+                    computes.get(a, ("",))[0] == "and" and uses[a] == 1
+                    and any(ir.nodes[b][0] == "const" for b in ir.nodes[a][2])
+                    for a in args)
+            elif op in _LOGIC:
+                inputs[i] = set(args)
+                for a in args:
+                    if a in inputs and uses[a] == 1 and computes[a][0] in _LOGIC:
+                        merged = inputs[a] | (set(args) - {a})
+                        if len(merged) <= 3:
+                            inputs[i] = merged
+                            out["fused"] += 1
+                            break
+    return out
+
+
 def step_ops(irs) -> dict:
     """The work of one byte step of the stream matcher's walk for the
-    pattern tuple `irs`: `nodes` (IR nodes that compute), `c_ops` (C
-    operators of the emitted byte loop: the operator tokens between the
-    head of the loop and its end, comments and preprocessor lines left out;
-    a `?:` select counts once, casts and assignments do not count) and,
-    where the toolkit has a disassembler, what the compiler made of them:
-    `registers`, `spill_bytes`, `instructions` (machine instructions of the
-    byte loop) and `int32_ops` (those the int32 lanes execute: all but the
-    multiply-add pipe's and the branches).  `bound_ops` is the number the
-    bound uses: the larger of `int32_ops` and half of `instructions` (an SM
-    schedules 128 lanes a clock, twice its int32 lanes), or `c_ops` without a
-    disassembler."""
+    pattern tuple `irs`.  The bound's count, `bound_ops`, is what the walk
+    needs: the IR's operations (`nodes` less those `fused` into a LOP3 with
+    their user, the `either_pipe` ones on either pipe; `ir_ops`), the page
+    walk's boundary control
+    (PAGE_CONTROL_OPS_PER_BYTE) and, a pattern beyond the first, its
+    accept's select and add; on the int32 lanes, or half of all where that
+    is more (`needed_ops`).  Beside it: `c_ops` (C operators of the emitted
+    byte loop: the operator tokens between the head of the loop and its
+    end, comments and preprocessor lines left out; a `?:` select counts
+    once, casts and assignments do not count) and, where the toolkit has a
+    disassembler, what the compiler made of the loop: `registers`,
+    `spill_bytes`, `instructions` (machine instructions of the byte loop)
+    and `int32_ops` (those the int32 lanes execute: all but the
+    multiply-add pipe's and the branches)."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
         build,
         stream_matcher,
@@ -202,10 +279,16 @@ def step_ops(irs) -> dict:
     body = src[src.index("for (int32_t j = 0;"):src.index("hits[0LL")]
     code = "\n".join(ln.split("//")[0] for ln in body.splitlines()
                      if not ln.lstrip().startswith("#"))
-    out = {"nodes": sum(op not in ("const", "input")
-                        for ir in irs for op, _kind, _args in ir.nodes),
-           "c_ops": len(_C_OPERATOR.findall(code))}
-    out["bound_ops"], out["counted"] = out["c_ops"], "C operators"
+    ir = ir_ops(irs)
+    needs = {"the IR's logic, compares and selects, LOP3-fused": (
+                 ir["nodes"] - ir["fused"] - ir["either_pipe"], "int32"),
+             "the IR's adds and constant shifts": (ir["either_pipe"], "fma"),
+             "select the other patterns' accepts": (len(irs) - 1, "int32"),
+             "add them": (len(irs) - 1, "fma"),
+             **PAGE_CONTROL_OPS_PER_BYTE}
+    out = {**ir, "c_ops": len(_C_OPERATOR.findall(code)),
+           "bound_ops": needed_ops(needs),
+           "counted": "operations the IR and the boundary control need"}
     if build.disassembler() is not None:
         (name, info), = [
             kv for kv in build.inspect_source(
@@ -217,8 +300,7 @@ def step_ops(irs) -> dict:
                             if op in FMA_PIPE + SLOT_ONLY)
         out.update(registers=info["registers"],
                    spill_bytes=info["spill_bytes"], instructions=total,
-                   int32_ops=int32, bound_ops=max(int32, total / 2),
-                   counted="machine instructions on the int32 lanes")
+                   int32_ops=int32)
     return out
 
 
@@ -712,11 +794,14 @@ def time_kernels(col, dcol, device, ops_per_s):
                 f"{ops['registers']} registers, {ops['spill_bytes']} spill "
                 "bytes")
         log(f"K1 {pats} at {tuple(bk['stream'].shape)} u8, K={len(irs)}: "
-            f"kernel {ms:.4f} ms per call; {walked} bytes walked, a step is "
-            f"{ops['c_ops']} C operators ({ops['nodes']} IR nodes + "
-            f"{ops['c_ops'] - ops['nodes']} of control){made}; {n_bytes} "
-            f"bytes moved: bound {b_ms:.4f} ms by {b_by} ({ops['bound_ops']:g} "
-            f"{ops['counted']} a step); the bound is {100 * b_ms / ms:.1f}% "
+            f"kernel {ms:.4f} ms per call; {walked} bytes walked; the walk "
+            f"needs {ops['bound_ops']:g} int32 operations a step "
+            f"({ops['nodes']} IR nodes, {ops['fused']} of them fused into a "
+            f"LOP3 with their user, {ops['either_pipe']} adds and constant "
+            "shifts that the multiply-add pipe may take, the boundary control "
+            f"{PAGE_CONTROL_OPS_PER_BYTE}); the emitted loop is "
+            f"{ops['c_ops']} C operators{made}; {n_bytes} bytes moved: bound "
+            f"{b_ms:.4f} ms by {b_by}; the bound is {100 * b_ms / ms:.1f}% "
             "of the kernel's time")
         if k1 is None:
             plain_ms, (h0, s0) = timed(
@@ -1295,6 +1380,87 @@ def variant_name(staged: bool) -> str:
     return "shared memory" if staged else "device memory"
 
 
+def value_variant(packed) -> str:
+    """The table the wrapper's per-value walk holds under `packed`."""
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
+
+    mode, nbytes = dfa_walk.value_mode(packed, torch.cuda.current_device())
+    return f"{dfa_walk.MODE_NAMES[mode]} ({nbytes} bytes staged)"
+
+
+# The per-value walk's edges (csrc/dfa_walk.cu: a persistent grid of
+# 512-thread blocks whose threads walk every stride-th row in 64-byte
+# windows, loads of 16, 8, 4 or 1 bytes): (rows, pitch, lengths, byte offset
+# of the first row), as tests/test_torch_dfa_walk.py's VALUE_EDGES.
+VALUE_EDGES = [(1, 64, "random", 0), (31, 64, "random", 0),
+               (32, 64, "random", 0), (33, 64, "random", 0),
+               (511, 64, "random", 0), (512, 64, "random", 0),
+               (513, 64, "random", 0), (2049, 64, "random", 0),
+               (300_000, 64, "skew", 0),
+               (300, 13, "random", 0), (300, 13, "random", 13),
+               (300, 64, "random", 1), (300, 64, "random", 8),
+               (300, 20, "random", 0), (300, 24, "random", 0),
+               (300, 200, "random", 0), (300, 256, "random", 0),
+               (1000, 64, "same", 0), (1000, 64, "skew", 0),
+               (1000, 256, "skew", 0)]
+
+
+def check_value_edges(device):
+    """K3's per-value walk against its plain version at the edges of its
+    blocks, grid, windows and loads (`VALUE_EDGES`), under the pattern's
+    folded table, the random 300 x 256 (staged packed, 153,856 bytes) and
+    4,096 x 256 (device memory) tables, in every variant that can launch
+    and the one the wrapper picks, one launch a call."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
+    from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+
+    rng = np.random.default_rng(61)
+    dfas = [compile_pattern(TABLE_PATTERNS[0]), random_dfa(rng, 300, 256),
+            random_dfa(rng, 4096, 256)]
+    words = np.frombuffer(b" ".join(
+        [b"furiously", b"carefully", b"express", b"regular", b"deposits",
+         b"requests", b"slyly", b"final"] * 80), np.uint8)
+    n_calls = 0
+    for n, pitch, kind, offset in VALUE_EDGES:
+        starts = rng.integers(0, len(words) - pitch, n)
+        rows = torch.from_numpy(words[starts[:, None] + np.arange(pitch)])
+        buf = torch.zeros(offset + n * pitch, dtype=torch.uint8,
+                          device=device)
+        chars = buf[offset:].view(n, pitch)
+        chars.copy_(rows)
+        if kind == "same":
+            lens = np.full(n, pitch, np.int32)
+        elif kind == "skew":
+            lens = np.where(rng.random(n) < 0.9, rng.integers(0, 4, n),
+                            pitch + 5).astype(np.int32)
+        else:
+            lens = rng.integers(0, pitch + 10, n).astype(np.int32)
+            lens[:2] = [0, pitch + 9][:n]
+        ln = torch.from_numpy(lens).to(device)
+        for dfa in dfas:
+            want = dfa_walk.value_walk_plain(chars, ln, dfa)
+            fits = value_stageable(dfa)
+            for staged in (None, False) + ((True,) if fits else ()):
+                before = dfa_walk.launches
+                got = dfa_walk.value_walk(chars, ln, dfa, staged=staged)
+                if dfa_walk.launches != before + 1 or not torch.equal(got,
+                                                                      want):
+                    raise AssertionError(
+                        f"K3's per-value walk (staged={staged}) disagrees "
+                        f"with its plain version at [{n}, {pitch}], lengths "
+                        f"{kind}, offset {offset}, under {dfa.pattern}")
+                n_calls += 1
+    torch.cuda.synchronize()
+    log(f"K3 per-value walk vs plain at {len(VALUE_EDGES)} edge shapes "
+        f"(rows 1-300000, pitch 13-256, offsets 0-13, lengths random / same / "
+        f"skewed) under 3 tables: {n_calls} calls exact, one launch each")
+
+
 def check_table_kernels(col, eng, deng, device):
     """(a) K3's page walk against its plain version, bit for bit, in both
     variants (the table staged in shared memory, and read from device
@@ -1302,9 +1468,11 @@ def check_table_kernels(col, eng, deng, device):
     buckets for each table-DFA pattern, and on random pages under a random
     300-state table of 256 byte classes (153,856 bytes, staged above 48 KB
     when forced) and a 4,096-state one (too large to stage: device memory
-    only); (b) its per-value walk against its plain version on l_comment's
-    `str_padded` and city's `dict_padded`, and under the random tables.
-    Returns the str_padded tensors, which (f) times."""
+    only); (b) its per-value walk against its plain version, in every
+    variant, on l_comment's `str_padded` and city's `dict_padded` (the
+    row-wise yardstick too), under the random tables and at the edge shapes
+    of its blocks and windows (`check_value_edges`).  Returns the
+    str_padded tensors, which (f) times."""
     import numpy as np
     import torch
 
@@ -1358,16 +1526,20 @@ def check_table_kernels(col, eng, deng, device):
         device)
     for n_states, fits in ((300, True), (4096, False)):
         dfa = random_dfa(rng, n_states, 256)
-        size = len(dfa_walk.pack_table(dfa).data)
+        packed = dfa_walk.pack_table(dfa)
+        size = len(packed.data)
         if (size <= per_block) != fits:
             raise AssertionError(f"a {size}-byte table against {per_block} "
                                  "bytes of shared memory a block")
         h0, s0 = dfa_walk.stream_walk_plain(pt, pl, nv, dfa)
         v0 = dfa_walk.value_walk_plain(chars, lens, dfa)
-        for staged in (None, False) + ((True,) if fits else ()):
-            h1, s1 = dfa_walk.stream_walk(stream_matcher.chunk_stream(pt), pl,
-                                          nv, dfa, staged=staged)
-            v1 = dfa_walk.value_walk(chars, lens, dfa, staged=staged)
+        v_fits = value_stageable(dfa)
+        for staged in (None, False, True):
+            if not staged or fits:
+                h1, s1 = dfa_walk.stream_walk(stream_matcher.chunk_stream(pt),
+                                              pl, nv, dfa, staged=staged)
+            if not staged or v_fits:
+                v1 = dfa_walk.value_walk(chars, lens, dfa, staged=staged)
             if not (torch.equal(h1, h0) and torch.equal(s1, s0)
                     and torch.equal(v1, v0)):
                 raise AssertionError(f"K3 (staged={staged}) disagrees with "
@@ -1375,12 +1547,13 @@ def check_table_kernels(col, eng, deng, device):
         log(f"K3 vs plain under a {dfa.pattern} table ({size} bytes; "
             f"{per_block} bytes of shared memory a block; the wrapper picks "
             f"{variant_name(dfa_walk.stages(dev_index, False, size))} for the "
-            f"page walk, "
-            f"{variant_name(dfa_walk.stages(dev_index, True, size))} for the "
-            f"per-value walk): page walk over {len(plen)} random pages and "
-            f"per-value walk over {tuple(chars.shape)} exact in "
-            f"{'both variants' if fits else 'device memory'}, "
+            f"page walk, the {value_variant(packed)} for the per-value "
+            f"walk): page walk over {len(plen)} random pages exact in "
+            f"{'both variants' if fits else 'device memory'}, per-value walk "
+            f"over {tuple(chars.shape)} in "
+            f"{'both variants' if v_fits else 'device memory'}, "
             f"{int(h1.sum())} hits, {int(v1.sum())} values accepted")
+    check_value_edges(device)
 
     t0 = time.perf_counter()
     sbatch = eng.reader.prescan("l_comment", pad_strings=8)
@@ -1396,13 +1569,20 @@ def check_table_kernels(col, eng, deng, device):
              TABLE_PATTERNS + DICT_PATTERNS[:1])):
         for pat in pats:
             dfa = compile_pattern(pat)
-            v1 = dfa_walk.value_walk(c, ln, dfa)
             v0 = dfa_walk.value_walk_plain(c, ln, dfa)
-            if not torch.equal(v1, v0):
-                raise AssertionError(f"K3's per-value walk disagrees with its "
-                                     f"plain version on {label}, {pat!r}")
+            for staged in (None, False, True):
+                v1 = dfa_walk.value_walk(c, ln, dfa, staged=staged)
+                if not torch.equal(v1, v0):
+                    raise AssertionError(
+                        f"K3's per-value walk (staged={staged}) disagrees "
+                        f"with its plain version on {label}, {pat!r}")
+            if not torch.equal(dfa_walk.value_walk_rowwise(c, ln, dfa), v0):
+                raise AssertionError(f"the row-wise yardstick disagrees on "
+                                     f"{label}, {pat!r}")
         log(f"K3 per-value walk vs plain on {label} {tuple(c.shape)}: "
-            f"{len(pats)} patterns exact (last: {int(v1.sum())} accepted)")
+            f"{len(pats)} patterns exact in every variant, and the row-wise "
+            f"yardstick (last: {int(v1.sum())} accepted, the wrapper picks "
+            f"the {value_variant(dfa_walk.pack_table(dfa))})")
     log(f"(prescans with pad_strings for the per-value walk: {prescan_ms:.1f} "
         "ms)")
     return str_chars, str_lens
@@ -1506,31 +1686,21 @@ def plain_table_walk():
         dfa_walk.stream_walk = real
 
 
-# The operations K3's walks need, one machine instruction each, as the byte
-# loops of csrc/dfa_walk.cu state them (the page walk's boundary control is
-# K1's): {what: (count, pipe)}, "fma" for the multiply-add pipe.  The loads
-# of the class and of the entry are memory, not operations, and the loop's
-# own upkeep is left out (a 16-byte chunk unrolled keeps one test a byte:
-# the lane's `done < nn`).
+# The operations K3's page walk needs, one machine instruction each, as the
+# byte loop of csrc/dfa_walk.cu states it: its transition, then the boundary
+# control it shares with K1 (PAGE_CONTROL_OPS_PER_BYTE).  The loads of the
+# class and of the entry are memory, not operations.
 K3_PAGE_OPS_PER_BYTE = {
-    "take the byte out of the chunk": (1, "int32"),
     "entry index state * n_classes + class": (1, "fma"),
     "split the entry: next state, accept": (2, "int32"),
-    "prefix byte? prefix_left - 1, the prefix's end, a zero length": (
-        4, "int32"),
-    "shift amount 8 * (4 - prefix_left)": (1, "fma"),
-    "shift the length byte in, or it into ctr": (2, "int32"),
-    "ctr - 1, the value's end, either end": (3, "int32"),
-    "add the accept (select, add), count the value": (3, "int32"),
-    "next prefix_left, ctr, state (two selects each)": (6, "int32"),
-    "the lane's test done < nn": (1, "int32"),
+    **PAGE_CONTROL_OPS_PER_BYTE,
 }
 K3_VALUE_OPS_PER_BYTE = {
     "take the byte out of the chunk": (1, "int32"),
-    "entry index state * n_classes + class": (1, "fma"),
-    "next state = entry & 0x7fff": (1, "int32"),
+    "the next entry's address, row + 4 * byte": (1, "fma"),
+    "the value's length test": (1, "int32"),
 }
-K3_VALUE_OPS_PER_VALUE = 1  # accept = entry >> 15, once a value
+K3_VALUE_OPS_PER_VALUE = 1  # the accept, read from the last state's row
 MEMORY_OPS = ("LDS", "LDG", "LDC", "LD", "LDL", "ULDC", "STS", "STG", "ST",
               "STL")
 
@@ -1544,16 +1714,17 @@ def needed_ops(table: dict) -> float:
     return max(int32, total / 2)
 
 
-def loop_ops(kernel: str) -> dict:
-    """What the compiler made of K3's byte loop in the staged variant of
-    `kernel` (the innermost loop that loads from shared memory): machine
+def loop_ops(kernel: str, variant: str = "ILb1E") -> dict:
+    """What the compiler made of the innermost loop that loads from shared
+    memory in K3's `kernel`, the instance whose mangled template arguments
+    are `variant` (the page walk's staged one by default): machine
     instructions, the memory ones among them, those on the int32 lanes,
     registers and spills.  A reading beside the bound, not its source."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import build
 
     (name, info), = [kv for kv in build.inspect_source(
         build.read_csrc("dfa_walk.cu"), loop_containing="LDS").items()
-        if f"{kernel}ILb1E" in kv[0]]
+        if f"{kernel}{variant}" in kv[0]]
     loop = info["loop_instructions"]
     total = sum(loop.values())
     memory = sum(n for op, n in loop.items() if op in MEMORY_OPS)
@@ -1564,16 +1735,33 @@ def loop_ops(kernel: str) -> dict:
             "opcodes": loop}
 
 
-def time_variants(walk, dfas: dict) -> dict:
+def time_variants(walk, dfas: dict, stageable=lambda dfa: True) -> dict:
     """{label: (device-memory ms, staged ms)} of `walk(dfa, staged)` under
-    each table of `dfas`, the least of 3 alternating rounds of 10 calls."""
+    each table of `dfas`, the least of 3 alternating rounds of 10 calls;
+    staged ms None where `stageable(dfa)` says the staged variant cannot
+    launch."""
     best = {}
     for _ in range(3):
         for label, dfa in dfas.items():
             ms = tuple(timed(lambda st=st: walk(dfa, st), 10)[0]
+                       if not st or stageable(dfa) else None
                        for st in (False, True))
-            best[label] = tuple(map(min, zip(best.get(label, ms), ms)))
+            best[label] = tuple(m if b is None else b if m is None
+                                else min(b, m)
+                                for b, m in zip(best.get(label, ms), ms))
     return best
+
+
+def value_stageable(dfa) -> bool:
+    """Whether the per-value walk's staged variant launches under `dfa`
+    (not where its table outgrows a block's shared memory)."""
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
+
+    index = torch.cuda.current_device()
+    mode, nbytes = dfa_walk.value_mode(dfa_walk.pack_table(dfa), index, True)
+    return dfa_walk.blocks_per_sm(index, 1 + mode, nbytes) > 0
 
 
 def time_table_kernel(col, str_chars, str_lens, ops_per_s):
@@ -1592,6 +1780,9 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
         stream_matcher,
     )
     from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+    from duckdb_parquet_parser_tpu_torch.utils.probe_value_walk import (
+        fetch_floor,
+    )
 
     pat = TABLE_PATTERNS[0]
     dfa = compile_pattern(pat)
@@ -1635,37 +1826,70 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
           f"{walked} bytes walked, {dfa.n_states} states",
           "ops_per_byte": per_byte, "loop_instructions": ops["instructions"]}
 
-    t = best_of({"kernel": lambda: dfa_walk.value_walk(str_chars, str_lens,
-                                                       dfa),
+    def walk_value():
+        return dfa_walk.value_walk(str_chars, str_lens, dfa)
+
+    def walk_rowwise():
+        return dfa_walk.value_walk_rowwise(str_chars, str_lens, dfa)
+
+    t = best_of({"kernel": walk_value, "rowwise": walk_rowwise,
                  "plain": lambda: dfa_walk.value_walk_plain(str_chars,
                                                             str_lens, dfa)},
                 5)
-    got = dfa_walk.value_walk(str_chars, str_lens, dfa)
-    err = int((got != dfa_walk.value_walk_plain(str_chars, str_lens,
-                                                dfa)).sum())
-    on_card = min(queued_ms(lambda: dfa_walk.value_walk(str_chars, str_lens,
-                                                        dfa), 20)
-                  for _ in range(3))
+    want = dfa_walk.value_walk_plain(str_chars, str_lens, dfa)
+    err = int((walk_value() != want).sum())
+    if not torch.equal(walk_rowwise(), want):
+        raise AssertionError("the row-wise yardstick differs from the plain "
+                             "walk on str_padded")
+    # on the card alone, the two kernels in turns (kernel, row-wise, ...)
+    alone = {"kernel": float("inf"), "rowwise": float("inf")}
+    for _ in range(3):
+        for name, fn in (("kernel", walk_value), ("rowwise", walk_rowwise)):
+            alone[name] = min(alone[name], queued_ms(fn, 20))
+    on_card = alone["kernel"]
     walked = int(str_lens.clamp(max=str_chars.shape[1]).sum())
     count = str_chars.shape[0]
+    floor = fetch_floor(str_chars, str_lens)
+    floor_ms = floor / HBM_BYTES_PER_S * 1e3
     v_per_byte = needed_ops(K3_VALUE_OPS_PER_BYTE)
-    vops = loop_ops("dfa_values_kernel")
+    mode, nbytes = dfa_walk.value_mode(dfa_walk.pack_table(dfa),
+                                       torch.cuda.current_device())
+    # the kernel's instance: its table mode and its load width
+    piece = next(p for p in (16, 8, 4, 1)
+                 if (str_chars.data_ptr() | str_chars.shape[1]) % p == 0)
+    vops = loop_ops("dfa_values_kernel", f"ILi{mode}ELi{piece}E")
     n_bytes = walked + 5 * count + table_bytes
     v_ms, v_by = bound(n_bytes, v_per_byte * walked
                        + K3_VALUE_OPS_PER_VALUE * count, ops_per_s)
-    log(f"K3 per-value walk {pat!r} on str_padded {tuple(str_chars.shape)}: "
-        f"{t['kernel']:.4f} ms per call, {on_card:.4f} ms on the card alone, "
-        f"plain {t['plain']:.4f} ms; {walked} bytes walked; the walk needs "
-        f"{v_per_byte:g} int32 operations a byte and "
+    log(f"K3 per-value walk {pat!r} on str_padded {tuple(str_chars.shape)}, "
+        f"the wrapper's {dfa_walk.MODE_NAMES[mode]} ({nbytes} bytes "
+        f"staged): {t['kernel']:.4f} ms per call, {on_card:.4f} ms on the "
+        f"card alone; the row-wise kernel it replaced {t['rowwise']:.4f} ms "
+        f"per call, {alone['rowwise']:.4f} ms on the card alone (timed in "
+        f"turns); plain {t['plain']:.4f} ms; {walked} bytes walked; the walk "
+        f"needs {v_per_byte:g} int32 operations a byte and "
         f"{K3_VALUE_OPS_PER_VALUE} a value; {n_bytes} bytes moved: bound "
         f"{v_ms:.4f} ms by {v_by} ({100 * v_ms / on_card:.1f}% of the time "
-        f"on the card); the compiled byte loop: {vops['instructions']} "
-        f"machine instructions ({vops['memory']} memory, "
-        f"{vops['int32_ops']} int32), {vops['registers']} registers")
+        f"on the card; the row-wise kernel's "
+        f"{100 * v_ms / alone['rowwise']:.1f}%); the 32-byte sectors that "
+        f"hold the walked bytes: {floor} bytes, {floor_ms:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({100 * floor_ms / on_card:.1f}% "
+        f"of the time on the card); the compiled window loop (64 bytes of "
+        f"a row a thread, {piece}-byte loads): {vops['instructions']} machine "
+        f"instructions ({vops['memory']} memory, {vops['int32_ops']} int32; "
+        f"{vops['opcodes']}), {vops['registers']} registers, "
+        f"{vops['spill_bytes']} spill bytes")
     k3.update(values_shape=f"chars {list(str_chars.shape)}",
               values_max_abs_err=err, values_ms=t["kernel"],
               values_device_ms=on_card, values_plain_ms=t["plain"],
-              values_bound_ms=v_ms, values_bound_by=v_by)
+              values_bound_ms=v_ms, values_bound_by=v_by,
+              values_fetch_floor_bytes=floor, values_fetch_floor_ms=floor_ms,
+              values_rowwise_ms=t["rowwise"],
+              values_rowwise_device_ms=alone["rowwise"],
+              values_variant=dfa_walk.MODE_NAMES[mode],
+              values_loop_instructions=vops["instructions"],
+              values_registers=vops["registers"],
+              values_spill_bytes=vops["spill_bytes"])
 
     # where the table sits: both variants at the path's shapes, under the
     # pattern's table and a random 300 x 256 one (153,856 bytes)
@@ -1679,15 +1903,22 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
                 staged=st), dfas),
         "per-value walk": time_variants(
             lambda d, st: dfa_walk.value_walk(str_chars, str_lens, d,
-                                              staged=st), dfas)}
+                                              staged=st), dfas,
+            value_stageable)}
     for walk, by_table in variants.items():
-        values = walk == "per-value walk"
+        if walk == "per-value walk":
+            picks = {label: value_variant(dfa_walk.pack_table(d))
+                     for label, d in dfas.items()}
+        else:
+            picks = {label: variant_name(dfa_walk.stages(
+                torch.cuda.current_device(), False,
+                len(dfa_walk.pack_table(d).data))) for label, d in dfas.items()}
         log(f"K3 {walk}, table in device memory / staged in shared memory "
             "(least of 3 rounds of 10): " + "; ".join(
-                f"{label} table {dev_ms:.4f} / {sh_ms:.4f} ms, the wrapper "
-                f"picks " + variant_name(dfa_walk.stages(
-                    torch.cuda.current_device(), values,
-                    len(dfa_walk.pack_table(dfas[label]).data)))
+                f"{label} table {dev_ms:.4f} / "
+                + ("cannot be staged" if sh_ms is None else f"{sh_ms:.4f} ms")
+                + ", the wrapper "
+                f"picks the {picks[label]}"
                 for label, (dev_ms, sh_ms) in by_table.items()))
     k3["variants_ms"] = {walk: {label: {"device_memory": d, "shared": sh}
                                 for label, (d, sh) in by_table.items()}
@@ -1711,7 +1942,125 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
         log(f"warm query l_comment ~ {pat!r} with {label}: {ms:.3f} ms "
             f"(CUDA events); profile: {line}")
         k3[f"query_ms_{label.split()[0].lower()}"] = ms
+        if label == "K3":
+            k3["query_profiled_k3_launches"] = profiled_k3_launches(col, pat)
     return k3
+
+
+def profile_counts(fn, trace: Path) -> dict:
+    """One profile (host and device activities) of `fn` after a warm-up:
+    the K3 launches the wrapper counted, the launch calls and the K3
+    kernels the trace records, and each recorded kernel's start less its
+    launch call's start (µs on the trace's clock; a kernel cannot start
+    before its launch, so a negative lead is how far the device's converted
+    timestamps run early)."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
+
+    fn()
+    before = dfa_walk.launches
+    _profile_once(fn, trace, True)
+    counted = dfa_walk.launches - before
+    events = json.loads(trace.read_text())["traceEvents"]
+    calls = {e["args"]["correlation"]: float(e["ts"]) for e in events
+             if e.get("cat") == "cuda_runtime" and "Launch" in e["name"]
+             and "correlation" in e.get("args", {})}
+    k3 = [e for e in events
+          if e.get("cat") == "kernel" and "dfa_stream" in e["name"]]
+    return {"counted": counted, "launch_calls": len(calls),
+            "recorded": len(k3),
+            "launch_lead_us": [round(float(e["ts"]) - calls[c], 1)
+                               for e in k3 for c in
+                               [e.get("args", {}).get("correlation")]
+                               if c in calls]}
+
+
+def profile_probe(late: bool) -> int:
+    """(`--profile-probe [late]`, a child process) Profiles of two K3 page
+    walks over random pages in a fresh process: first, then after a
+    profile of 20,000 small PyTorch launches (device only, as the plain
+    loop's is taken), then after one with host activities too.  `late`: a
+    profile of other kernels starts the profiler before K3's first launch.
+    Prints one JSON line {when: profile_counts}."""
+    import numpy as np
+    import torch
+
+    setup_environment()
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
+        dfa_walk,
+        stream_matcher,
+    )
+    from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+
+    rng = np.random.default_rng(53)
+    pm, plen, nn = random_pages(rng, 3000, 6, 40, alphabet=bytes(range(256)))
+    stream = stream_matcher.chunk_stream(
+        torch.from_numpy(np.ascontiguousarray(pm.T)).cuda())
+    pl, nv = torch.from_numpy(plen).cuda(), torch.from_numpy(nn).cuda()
+    dfa = compile_pattern(TABLE_PATTERNS[0])
+
+    def two_walks():
+        for _ in range(2):
+            dfa_walk.stream_walk(stream, pl, nv, dfa)
+
+    x = torch.zeros(1024, device="cuda")
+
+    def many():
+        for _ in range(20_000):
+            x.add_(1)
+
+    trace = ROOT / "build" / "profile" / "k3_fresh.json"
+    if late:
+        _profile_once(many, trace, True)
+    out = {"first": profile_counts(two_walks, trace)}
+    for cpu in (False, True):
+        _profile_once(many, trace, cpu)
+        out[f"after 20000 launches profiled ({'host and ' * cpu}device)"] = (
+            profile_counts(two_walks, trace))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def profiled_k3_launches(col, pat) -> dict:
+    """The K3 launches that profiles record beside those the wrapper
+    counted (profile_counts): of the warm table-DFA query and of its two
+    page walks launched straight, in this process, and of two page walks
+    over random pages in fresh processes (`--profile-probe`), one of them
+    with the profiler started before K3's first launch."""
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
+    from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+
+    buckets = [b for b in col._buckets if b["has_plain"]]
+    dfa = compile_pattern(pat)
+
+    def direct():
+        for b in buckets:
+            dfa_walk.stream_walk(b["stream"], b["walk_plen"], b["walk_nn"],
+                                 dfa, b["steps"])
+
+    seen = {}
+    for label, fn in (("the query", lambda: col.scan(pat)),
+                      ("its two page walks", direct)):
+        seen[label] = profile_counts(
+            fn, ROOT / "build" / "profile" / f"k3_{len(seen)}.json")
+    for late in ("", "late"):
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--profile-probe"]
+            + [late] * bool(late), capture_output=True, text=True,
+            timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"--profile-probe {late} failed: "
+                                 f"{child.stderr[-2000:]}")
+        where = ("a fresh process whose profiler started before K3's first "
+                 "launch" if late else "a fresh process")
+        for when, c in json.loads(
+                child.stdout.strip().splitlines()[-1]).items():
+            seen[f"two page walks in {where}, {when}"] = c
+    for label, c in seen.items():
+        log(f"profile of {label}: the wrapper launched K3 {c['counted']} "
+            f"times; the trace records {c['launch_calls']} launch calls and "
+            f"{c['recorded']} K3 kernels, each starting "
+            f"{c['launch_lead_us']} µs after its launch call")
+    return seen
 
 
 def run_table_sharded(device, fixtures: Path):
@@ -2290,6 +2639,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--shard-rank"]:
         return child_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--profile-probe"]:
+        return profile_probe(sys.argv[2:3] == ["late"])
     setup_environment()
     device = torch.device("cuda")
     card = card_line()

@@ -24,31 +24,53 @@
 // zero-length value adds accept[0]; the state resets to 0 when a prefix ends
 // and holds during prefix bytes; the lane stops at its first inactive byte
 // (b >= plen or all nn values seen).  hits[lane], seen[lane] int32.
+// What bounds it: operations and load latency, not bytes.  Each byte is a
+// dependent chain of two loads (class, then entry) and K1's control, while
+// the stream is read once.  So the table is staged in shared memory
+// (dynamic shared memory, above 48 KB after cudaFuncSetAttribute) while the
+// staged kernel keeps more than half the resident blocks of the
+// device-memory one (every block copies the whole table), and read through
+// __ldg from device memory otherwise, where the L1 and the 50 MB L2 hold it.
+// Lanes arrive sorted by length, so a warp's lanes stop together.
 //
 // dpq_dfa_values (the per-value walk).  chars [L, P] u8, one row per value,
 // zero-padded; for j < min(len, P): state = T[state, chars[j]]; out =
-// accept[state].  One thread per value reads its own row 16 bytes a load
-// when rows are 16-byte aligned, byte by byte otherwise.
-//
-// What bounds it: operations and load latency, not bytes.  Each byte is a
-// dependent chain of two loads (class, then entry) and K1's control, while
-// the stream is read once.  So the table sits where a load is shortest:
-// both kernels stage the class map and table in shared memory (dynamic
-// shared memory, above 48 KB after cudaFuncSetAttribute) while the staged
-// kernel keeps more than half the resident blocks of the device-memory one
-// (dpq_dfa_blocks_per_sm: every block copies the whole table, so a large
-// staged table leaves an SM a warp or two; on the H100 that rule stages
-// up to ~16 KB, where staging was faster in every case measured);
-// any other table (up to 16 MB at the 32,768-state limit; 2 MB at the
-// compiler's default 4,096-state budget) is read through __ldg from device
-// memory, where the L1 and the 50 MB L2 hold it.  The wrapper picks the
-// variant; both are the same walk.  The stream's loads stay out of the
-// chain as in K1, and lanes arrive sorted by length, so a warp's lanes
-// stop together.
+// accept[state].  What bounds it: the bytes of the rows, which must come
+// from device memory once, and the table's loads, one a byte, whose bank
+// conflicts keep the shared-memory pipe busy for about half as long.  So:
+//  * a persistent grid (the blocks the SMs hold at once); a block stages
+//    the table once, then each thread walks every stride-th row;
+//  * a row is walked in windows of 64 bytes held in registers, and a
+//    thread loads its next window (the next row's first, or this row's
+//    next) before it walks this one: the loads of 32 neighbouring rows lie
+//    in 32 * P contiguous bytes, and the next row's length is loaded with
+//    its bytes, so no load waits on another.  A window is loaded whole up
+//    to the pitch (16-, 8-, 4- or 1-byte loads, the largest that divides
+//    the pitch and the address of chars): reading a row's last sector past
+//    its length costs less than the requests cut at the length would;
+//  * up to 64 states, the block folds the class map into a byte-indexed
+//    table whose entries are the shared-memory address of the next state's
+//    row (rows of 257 words: 256 bytes, then the state's accept; an odd row
+//    length spreads the states' rows over the banks), so a byte is one
+//    dependent shared load: byte extract, address (one add), load, and the
+//    length test.  Larger automata walk the packed table (class, then
+//    entry), in shared memory or in device memory as for the page walk.
+// A tile ring in shared memory, filled by cp.async (32 rows a warp), was
+// measured and lost: its copies share the shared-memory pipe that the table
+// loads already hold.  The wrapper picks where the table sits by the same
+// occupancy rule as the page walk, and passes the grid.
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 struct dpq_chunk { uint64_t lo, hi; };  // bytes 0-7 and 8-15, little-endian
+
+// The per-value walk's window and table modes.
+#define DPQ_WINDOW 64           // bytes of a row a thread holds at once
+#define DPQ_FOLD_ROW 257        // words a folded state row: 256 bytes, accept
+#define DPQ_FOLD_ROW_BYTES (4 * DPQ_FOLD_ROW)
+#define DPQ_FOLD_MAX_STATES 64  // 65,792 bytes of folded table
+enum { DPQ_FOLDED = 0, DPQ_PACKED_SHARED = 1, DPQ_PACKED_GLOBAL = 2 };
 
 #ifdef __CUDACC__
 __device__ __forceinline__ dpq_chunk dpq_load_chunk(const uint8_t* __restrict__ p)
@@ -57,20 +79,6 @@ __device__ __forceinline__ dpq_chunk dpq_load_chunk(const uint8_t* __restrict__ 
     dpq_chunk c;
     c.lo = w.x;
     c.hi = w.y;
-    return c;
-}
-
-__device__ __forceinline__ dpq_chunk dpq_load_bytes(const uint8_t* __restrict__ p,
-                                                    int32_t nb)
-{
-    dpq_chunk c = {0, 0};
-    for (int32_t k = 0; k < nb; ++k) {
-        const uint64_t b = __ldg(p + k);
-        if (k < 8)
-            c.lo |= b << (8 * k);
-        else
-            c.hi |= b << (8 * (k - 8));
-    }
     return c;
 }
 
@@ -96,13 +104,6 @@ static inline dpq_chunk dpq_load_chunk(const uint8_t* p)
 {
     dpq_chunk c;
     memcpy(&c, p, 16);
-    return c;
-}
-
-static inline dpq_chunk dpq_load_bytes(const uint8_t* p, int32_t nb)
-{
-    dpq_chunk c = {0, 0};
-    memcpy(&c, p, (size_t)nb);
     return c;
 }
 
@@ -173,37 +174,189 @@ __device__ __forceinline__ void dpq_dfa_lane(
     seen[lane] = done;
 }
 
-// One value of the per-value walk: its row of `pitch` bytes, `len` of them
-// real.  `wide`: rows are 16-byte aligned and pitch is a multiple of 16.
-template <bool LDG>
-__device__ __forceinline__ uint8_t dpq_dfa_value(
-    const uint8_t* __restrict__ row, int32_t pitch, int32_t len, int wide,
-    const uint8_t* __restrict__ cls, const uint16_t* __restrict__ tab,
-    int32_t n_classes, int32_t accept0)
+// ── the per-value walk's pieces, shared by the kernel and the host build ──
+
+// The bytes one load of a window moves: the largest of 16, 8, 4 that
+// divides both the pitch and the address of chars, else 1.
+static inline int32_t dpq_piece_bytes(int32_t pitch, const void* chars)
 {
-    const int32_t lim = len < pitch ? len : pitch;
-    int32_t state = 0;
-    uint32_t acc = (uint32_t)accept0;
-    for (int32_t j0 = 0; j0 < lim; j0 += 16) {
-        const int32_t left = lim - j0;
-        const int32_t nb = left < 16 ? left : 16;
-        const dpq_chunk ch = wide ? dpq_load_chunk(row + j0)
-                                  : dpq_load_bytes(row + j0, nb);
-        uint64_t lo = ch.lo, hi = ch.hi;
+    const uintptr_t a = (uintptr_t)chars | (uintptr_t)pitch;
+    return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 1;
+}
+
+// The bytes of a row that its walk reads: min(len, pitch), 0 below 0.
+__device__ __forceinline__ int32_t dpq_row_lim(int32_t len, int32_t pitch)
+{
+    return len < 0 ? 0 : len < pitch ? len : pitch;
+}
+
+// The bytes of window w that lie in the row.
+__device__ __forceinline__ int32_t dpq_window_bytes(int32_t pitch, int32_t w)
+{
+    const int32_t left = pitch - DPQ_WINDOW * w;
+    return left < DPQ_WINDOW ? left : DPQ_WINDOW;
+}
+
+// Bytes of the folded table of `n_states` states (a multiple of 16).
+static inline int32_t dpq_fold_bytes(int32_t n_states)
+{
+    return (DPQ_FOLD_ROW_BYTES * n_states + 15) & ~15;
+}
+
+// The folded table's entry for the packed entry e: the address of the next
+// state's row, `fold` being the table's own address (on the card a
+// shared-memory address, so a byte costs one load and no base add; on the
+// host 0, an offset); *next gets that state.
+__device__ __forceinline__ uint32_t dpq_fold_entry(uint32_t e, uint32_t fold,
+                                                   uint32_t* next)
+{
+    *next = e & 0x7fffu;
+    return fold + *next * DPQ_FOLD_ROW_BYTES;
+}
+
+// Byte J of a 16-byte chunk (J a constant), zero-extended.
+template <int J>
+__device__ __forceinline__ uint32_t dpq_chunk_byte(const dpq_chunk& q)
+{
+    return (uint32_t)(((J < 8 ? q.lo : q.hi) >> (8 * (J & 7))) & 0xffu);
+}
+
+// The folded walk's step for byte J of a chunk whose bytes from `left` on
+// lie past the value: st = the word at st + 4 * b, where J < left.
 #ifdef __CUDACC__
-#pragma unroll 1
+template <int J>
+__device__ __forceinline__ void dpq_fold_step(uint32_t& st, uint32_t b,
+                                              int32_t left, const uint8_t*)
+{
+    asm("{\n\t.reg .pred p;\n\tsetp.gt.s32 p, %2, %3;\n\t"
+        "@p ld.shared.u32 %0, [%1];\n\t}"
+        : "+r"(st) : "r"(st + 4 * b), "r"(left), "n"(J));
+}
+
+__device__ __forceinline__ uint32_t dpq_fold_word(const uint8_t*, uint32_t at)
+{
+    uint32_t v;
+    asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(at));
+    return v;
+}
+#else
+template <int J>
+static inline void dpq_fold_step(uint32_t& st, uint32_t b, int32_t left,
+                                 const uint8_t* fold)
+{
+    if (J < left) memcpy(&st, fold + st + 4 * b, 4);
+}
+
+static inline uint32_t dpq_fold_word(const uint8_t* fold, uint32_t at)
+{
+    uint32_t v;
+    memcpy(&v, fold + at, 4);
+    return v;
+}
 #endif
-        for (int32_t j = 0; j < nb; ++j) {
-            const int32_t c = (int32_t)(lo & 0xffu);
-            lo = (lo >> 8) | (hi << 56);
-            hi >>= 8;
-            const uint32_t e = dpq_entry<LDG>(
-                tab, state * n_classes + (int32_t)dpq_class<LDG>(cls, c));
-            state = (int32_t)(e & 0x7fffu);
-            acc = e >> 15;
+
+// One byte b of a value under the packed table: `st` the state, `acc` the
+// accept of its last entry.
+template <bool LDG>
+__device__ __forceinline__ void dpq_packed_step(
+    uint32_t b, uint32_t& st, uint32_t& acc, const uint8_t* __restrict__ table,
+    int32_t n_classes)
+{
+    const uint32_t e = dpq_entry<LDG>(
+        (const uint16_t*)(table + 256),
+        (int32_t)st * n_classes + (int32_t)dpq_class<LDG>(table, (int32_t)b));
+    st = e & 0x7fffu;
+    acc = e >> 15;
+}
+
+// The accept of a value whose walk ended in `st` (folded: its row's
+// address).
+template <int MODE>
+__device__ __forceinline__ uint32_t dpq_value_accept(
+    uint32_t st, uint32_t acc, const uint8_t* __restrict__ table)
+{
+    return MODE == DPQ_FOLDED ? dpq_fold_word(table, st + 4 * 256) : acc;
+}
+
+template <int J, int MODE>
+__device__ __forceinline__ void dpq_chunk_step(
+    const dpq_chunk& q, int32_t left, uint32_t& st, uint32_t& acc,
+    const uint8_t* __restrict__ table, int32_t n_classes)
+{
+    if constexpr (MODE == DPQ_FOLDED) {
+        dpq_fold_step<J>(st, dpq_chunk_byte<J>(q), left, table);
+    } else {
+        if (J < left)
+            dpq_packed_step<MODE == DPQ_PACKED_GLOBAL>(
+                dpq_chunk_byte<J>(q), st, acc, table, n_classes);
+    }
+    if constexpr (J < 15)
+        dpq_chunk_step<J + 1, MODE>(q, left, st, acc, table, n_classes);
+}
+
+// PIECE bytes at p, zero-extended (PIECE 1, 4 or 8).
+#ifdef __CUDACC__
+template <int PIECE>
+__device__ __forceinline__ uint64_t dpq_load_piece(const uint8_t* __restrict__ p)
+{
+    if constexpr (PIECE == 8) return __ldg((const unsigned long long*)p);
+    if constexpr (PIECE == 4) return __ldg((const unsigned int*)p);
+    return __ldg(p);
+}
+#else
+template <int PIECE>
+static inline uint64_t dpq_load_piece(const uint8_t* p)
+{
+    uint64_t v = 0;
+    memcpy(&v, p, PIECE);
+    return v;
+}
+#endif
+
+// A window into registers: bytes [0, avail) of p (avail <= DPQ_WINDOW, a
+// multiple of PIECE), zeros after them.
+template <int PIECE>
+__device__ __forceinline__ void dpq_load_window(const uint8_t* __restrict__ p,
+                                                int32_t avail, dpq_chunk* q)
+{
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int32_t k = 0; k < DPQ_WINDOW / 16; ++k) {
+        q[k].lo = q[k].hi = 0;
+        if constexpr (PIECE == 16) {
+            if (16 * k < avail) q[k] = dpq_load_chunk(p + 16 * k);
+        } else {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+            for (int32_t j = 0; j < 16; j += PIECE) {
+                if (16 * k + j >= avail) continue;
+                const uint64_t v = dpq_load_piece<PIECE>(p + 16 * k + j);
+                if (j < 8)
+                    q[k].lo |= v << (8 * j);
+                else
+                    q[k].hi |= v << (8 * (j - 8));
+            }
         }
     }
-    return (uint8_t)acc;
+}
+
+// Walks bytes [0, nb) of a window (nb may pass its end: the walk stops
+// there).  The folded table's `table` is its base (host) or unused (card:
+// the entries are shared-memory addresses).
+template <int MODE>
+__device__ __forceinline__ void dpq_walk_window(
+    const dpq_chunk* q, int32_t nb, uint32_t& st, uint32_t& acc,
+    const uint8_t* __restrict__ table, int32_t n_classes)
+{
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int32_t k = 0; k < DPQ_WINDOW / 16; ++k)
+        if (16 * k < nb)
+            dpq_chunk_step<0, MODE>(q[k], nb - 16 * k, st, acc, table,
+                                    n_classes);
 }
 
 #ifdef __CUDACC__
@@ -212,7 +365,14 @@ __device__ __forceinline__ uint8_t dpq_dfa_value(
 namespace {
 
 constexpr int kStreamThreads = 64;   // lanes a block: spread over the SMs
-constexpr int kValueThreads = 128;
+constexpr int kRowwiseThreads = 128;
+// The per-value walk's block: registers capped at 64 (two blocks an SM),
+// so an SM holds 1,024 threads and 64 KB of windows on their way.
+// utils/probe_value_walk.py --sweep times other sizes.
+#ifndef DPQ_VALUE_THREADS
+#define DPQ_VALUE_THREADS 512
+#endif
+constexpr int kValueThreads = DPQ_VALUE_THREADS;
 
 // Copies the packed table (`words` 16-byte words) into shared memory.
 __device__ __forceinline__ void stage(uint8_t* smem,
@@ -244,8 +404,91 @@ __global__ void __launch_bounds__(kStreamThreads) dfa_stream_kernel(
                           hits, seen);
 }
 
+// ── the per-value walk ──
+
+template <int MODE, int PIECE>
+__global__ void __launch_bounds__(kValueThreads, 1024 / kValueThreads)
+dfa_values_kernel(
+    const uint8_t* __restrict__ chars, long long count, int32_t pitch,
+    const int32_t* __restrict__ lens, const uint8_t* __restrict__ packed,
+    int32_t words, int32_t n_states, int32_t n_classes, int32_t accept0,
+    uint8_t* __restrict__ out)
+{
+    extern __shared__ __align__(16) uint8_t smem[];
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    // the first window is on its way while the block stages its table
+    int32_t lim = 0;
+    dpq_chunk q[DPQ_WINDOW / 16];
+    if (v < count) lim = dpq_row_lim(__ldg(lens + v), pitch);
+    dpq_load_window<PIECE>(chars + v * pitch,
+                           v < count ? dpq_window_bytes(pitch, 0) : 0, q);
+
+    const uint8_t* table = packed;
+    if constexpr (MODE == DPQ_FOLDED) {
+        // the block folds the class map in once: thread b builds column b;
+        // its entries are the shared-memory addresses of the next rows
+        uint32_t* fold = (uint32_t*)smem;
+        const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
+        for (int32_t s = threadIdx.x; s < n_states; s += blockDim.x)
+            fold[s * DPQ_FOLD_ROW + 256] = s == 0 ? (uint32_t)accept0 : 0;
+        __syncthreads();
+        for (int32_t b = threadIdx.x; b < 256; b += blockDim.x) {
+            const uint16_t* tab = (const uint16_t*)(packed + 256)
+                                  + __ldg(packed + b);
+#pragma unroll 8
+            for (int32_t s = 0; s < n_states; ++s) {
+                const uint32_t e = __ldg(tab + s * n_classes);
+                uint32_t next;
+                fold[s * DPQ_FOLD_ROW + b] = dpq_fold_entry(e, base, &next);
+                if (e >> 15) fold[next * DPQ_FOLD_ROW + 256] = 1;  // accepts
+            }
+        }
+        __syncthreads();
+        table = smem;
+    } else if constexpr (MODE == DPQ_PACKED_SHARED) {
+        stage(smem, packed, words);
+        table = smem;
+    }
+    const uint32_t start = MODE == DPQ_FOLDED
+        ? (uint32_t)__cvta_generic_to_shared(smem) : 0;
+
+    uint32_t st = start, acc = (uint32_t)accept0;
+    int32_t w = 0;  // q holds window w of row v
+    while (v < count) {
+        // load the next window, row v's next or the next row's first (its
+        // length with it), then walk this one
+        const bool same = DPQ_WINDOW * (w + 1) < lim;
+        const long long nv = same ? v : v + stride;
+        const int32_t nw = same ? w + 1 : 0;
+        int32_t nlim = lim;
+        if (!same && nv < count) nlim = dpq_row_lim(__ldg(lens + nv), pitch);
+        dpq_chunk n[DPQ_WINDOW / 16];
+        dpq_load_window<PIECE>(chars + nv * pitch + DPQ_WINDOW * nw,
+                               nv < count ? dpq_window_bytes(pitch, nw) : 0,
+                               n);
+        dpq_walk_window<MODE>(q, lim - DPQ_WINDOW * w, st, acc, table,
+                              n_classes);
+        if (!same) {
+            out[v] = (uint8_t)dpq_value_accept<MODE>(st, acc, table);
+            st = start;
+            acc = (uint32_t)accept0;
+        }
+#pragma unroll
+        for (int32_t k = 0; k < DPQ_WINDOW / 16; ++k) q[k] = n[k];
+        v = nv;
+        w = nw;
+        lim = nlim;
+    }
+}
+
+// The one-thread-a-value walk that dfa_values_kernel replaced: one thread
+// a value, 16 bytes a load where rows are aligned, byte by byte otherwise;
+// a block of 128 threads stages the table.  No route runs it: it stays as
+// the yardstick chip_smoke.py and probe_value_walk time the new kernel
+// against.
 template <bool SHARED>
-__global__ void __launch_bounds__(kValueThreads) dfa_values_kernel(
+__global__ void __launch_bounds__(kRowwiseThreads) dfa_rowwise_kernel(
     const uint8_t* __restrict__ chars, long long count, int32_t pitch,
     const int32_t* __restrict__ lens, const uint8_t* __restrict__ packed,
     int32_t words, int32_t n_classes, int32_t accept0, int wide,
@@ -259,13 +502,45 @@ __global__ void __launch_bounds__(kValueThreads) dfa_values_kernel(
     }
     const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (v >= count) return;
-    out[v] = dpq_dfa_value<!SHARED>(chars + v * pitch, pitch, lens[v], wide,
-                                    table, (const uint16_t*)(table + 256),
-                                    n_classes, accept0);
+    const uint8_t* row = chars + v * pitch;
+    const int32_t len = lens[v];
+    const int32_t lim = len < pitch ? len : pitch;
+    const uint8_t* cls = table;
+    const uint16_t* tab = (const uint16_t*)(table + 256);
+    int32_t state = 0;
+    uint32_t acc = (uint32_t)accept0;
+    for (int32_t j0 = 0; j0 < lim; j0 += 16) {
+        const int32_t left = lim - j0;
+        const int32_t nb = left < 16 ? left : 16;
+        dpq_chunk ch = {0, 0};
+        if (wide) {
+            ch = dpq_load_chunk(row + j0);
+        } else {
+            for (int32_t k = 0; k < nb; ++k) {
+                const uint64_t b = __ldg(row + j0 + k);
+                if (k < 8)
+                    ch.lo |= b << (8 * k);
+                else
+                    ch.hi |= b << (8 * (k - 8));
+            }
+        }
+        uint64_t lo = ch.lo, hi = ch.hi;
+#pragma unroll 1
+        for (int32_t j = 0; j < nb; ++j) {
+            const int32_t c = (int32_t)(lo & 0xffu);
+            lo = (lo >> 8) | (hi << 56);
+            hi >>= 8;
+            const uint32_t e = dpq_entry<!SHARED>(
+                tab, state * n_classes + (int32_t)dpq_class<!SHARED>(cls, c));
+            state = (int32_t)(e & 0x7fffu);
+            acc = e >> 15;
+        }
+    }
+    out[v] = (uint8_t)acc;
 }
 
-// The dynamic shared memory of the SHARED variant, raised past the 48 KB
-// default where the table needs it.
+// The dynamic shared memory of `kernel`, raised past the 48 KB default
+// where it needs more.
 template <typename K>
 cudaError_t shared_bytes(K kernel, int bytes)
 {
@@ -291,24 +566,76 @@ int blocks_per_sm(K kernel, int threads, int bytes)
     return n;
 }
 
+template <int MODE, int PIECE>
+cudaError_t launch_values(const uint8_t* chars, long long count, int pitch,
+                          const int32_t* lens, const uint8_t* packed,
+                          int packed_bytes, int n_states, int n_classes,
+                          int accept0, int grid, uint8_t* out,
+                          cudaStream_t s)
+{
+    const int bytes = MODE == DPQ_FOLDED ? dpq_fold_bytes(n_states)
+                      : MODE == DPQ_PACKED_SHARED ? packed_bytes : 0;
+    const cudaError_t rc = shared_bytes(dfa_values_kernel<MODE, PIECE>, bytes);
+    if (rc != cudaSuccess) return rc;
+    const long long need = (count + kValueThreads - 1) / kValueThreads;
+    const unsigned blocks = (unsigned)(need < grid ? need : grid);
+    dfa_values_kernel<MODE, PIECE><<<blocks, kValueThreads, bytes, s>>>(
+        chars, count, pitch, lens, packed, packed_bytes / 16, n_states,
+        n_classes, accept0, out);
+    return cudaSuccess;
+}
+
+// The launch of `mode`'s kernel for the loads `pitch` and chars allow.
+template <int MODE>
+cudaError_t launch_values_mode(const uint8_t* chars, long long count,
+                               int pitch, const int32_t* lens,
+                               const uint8_t* packed, int packed_bytes,
+                               int n_states, int n_classes, int accept0,
+                               int grid, uint8_t* out, cudaStream_t s)
+{
+    switch (dpq_piece_bytes(pitch, chars)) {
+    case 16:
+        return launch_values<MODE, 16>(chars, count, pitch, lens, packed,
+                                       packed_bytes, n_states, n_classes,
+                                       accept0, grid, out, s);
+    case 8:
+        return launch_values<MODE, 8>(chars, count, pitch, lens, packed,
+                                      packed_bytes, n_states, n_classes,
+                                      accept0, grid, out, s);
+    case 4:
+        return launch_values<MODE, 4>(chars, count, pitch, lens, packed,
+                                      packed_bytes, n_states, n_classes,
+                                      accept0, grid, out, s);
+    default:
+        return launch_values<MODE, 1>(chars, count, pitch, lens, packed,
+                                      packed_bytes, n_states, n_classes,
+                                      accept0, grid, out, s);
+    }
+}
+
 }  // namespace
 
-// Blocks one SM of the current device holds at once: of the per-value walk
-// when `values`, else of the page walk; of its staged variant with a table
-// of `staged_bytes` in shared memory, or, with `staged_bytes` 0, of its
-// device-memory variant.  The wrapper stages a table only where the staged
-// variant keeps more than half the device-memory variant's blocks (each
-// block copies the whole table, and fewer blocks leave fewer warps to hide
-// the walk's load latency).
-extern "C" int dpq_dfa_blocks_per_sm(int values, int staged_bytes)
+// Blocks one SM of the current device holds at once.  walk 0: the page
+// walk; 1: the per-value walk with the folded table; 2: the per-value walk
+// with the packed table.  `staged_bytes`: the table's bytes in shared
+// memory, or 0 for the variant that reads it from device memory.  The
+// wrapper stages a table only where the staged variant keeps more than
+// half the device-memory variant's blocks, and launches the per-value walk
+// with as many blocks as the SMs hold.
+extern "C" int dpq_dfa_blocks_per_sm(int walk, int staged_bytes)
 {
-    if (values)
+    if (walk == 0)
         return staged_bytes
-            ? blocks_per_sm(dfa_values_kernel<true>, kValueThreads, staged_bytes)
-            : blocks_per_sm(dfa_values_kernel<false>, kValueThreads, 0);
-    return staged_bytes
-        ? blocks_per_sm(dfa_stream_kernel<true>, kStreamThreads, staged_bytes)
-        : blocks_per_sm(dfa_stream_kernel<false>, kStreamThreads, 0);
+            ? blocks_per_sm(dfa_stream_kernel<true>, kStreamThreads, staged_bytes)
+            : blocks_per_sm(dfa_stream_kernel<false>, kStreamThreads, 0);
+    if (staged_bytes == 0)
+        return blocks_per_sm(dfa_values_kernel<DPQ_PACKED_GLOBAL, 16>,
+                             kValueThreads, 0);
+    return walk == 1
+        ? blocks_per_sm(dfa_values_kernel<DPQ_FOLDED, 16>, kValueThreads,
+                        staged_bytes)
+        : blocks_per_sm(dfa_values_kernel<DPQ_PACKED_SHARED, 16>,
+                        kValueThreads, staged_bytes);
 }
 
 // pay: [chunks, n, 16] u8; plen, nn, hits, seen: [n] int32; packed: the
@@ -340,29 +667,68 @@ extern "C" int dpq_dfa_stream(
     return (int)cudaGetLastError();
 }
 
-// chars: [count, pitch] u8; lens: [count] int32; out: [count] u8 (0 / 1).
+// chars: [count, pitch] u8; lens: [count] int32; out: [count] u8 (0 / 1);
+// packed: the packed table of `n_states` states; mode: DPQ_FOLDED (needs
+// n_states <= DPQ_FOLD_MAX_STATES), DPQ_PACKED_SHARED or DPQ_PACKED_GLOBAL;
+// grid: the blocks to launch at most (those the SMs hold at once).
 // count >= 1.
 extern "C" int dpq_dfa_values(
+    const void* chars, long long count, int pitch, const void* lens,
+    const void* packed, int packed_bytes, int n_states, int n_classes,
+    int accept0, int mode, int grid, void* out, void* stream)
+{
+    const uint8_t* c = (const uint8_t*)chars;
+    const int32_t* l = (const int32_t*)lens;
+    const uint8_t* p = (const uint8_t*)packed;
+    uint8_t* o = (uint8_t*)out;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t rc = cudaErrorInvalidValue;
+    if (mode == DPQ_FOLDED && n_states <= DPQ_FOLD_MAX_STATES)
+        rc = launch_values_mode<DPQ_FOLDED>(c, count, pitch, l, p,
+                                            packed_bytes, n_states, n_classes,
+                                            accept0, grid, o, s);
+    else if (mode == DPQ_PACKED_SHARED)
+        rc = launch_values_mode<DPQ_PACKED_SHARED>(c, count, pitch, l, p,
+                                                   packed_bytes, n_states,
+                                                   n_classes, accept0, grid,
+                                                   o, s);
+    else if (mode == DPQ_PACKED_GLOBAL)
+        rc = launch_values_mode<DPQ_PACKED_GLOBAL>(c, count, pitch, l, p,
+                                                   packed_bytes, n_states,
+                                                   n_classes, accept0, grid,
+                                                   o, s);
+    if (rc != cudaSuccess) {
+        cudaGetLastError();  // clear it: it is reported here
+        return (int)rc;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The one-thread-a-row yardstick (dfa_rowwise_kernel), as it was launched:
+// one thread a value, the table staged when `use_shared`.
+extern "C" int dpq_dfa_values_rowwise(
     const void* chars, long long count, int pitch, const void* lens,
     const void* packed, int packed_bytes, int n_classes, int accept0,
     int use_shared, void* out, void* stream)
 {
-    const unsigned blocks = (unsigned)((count + kValueThreads - 1) / kValueThreads);
+    const unsigned blocks =
+        (unsigned)((count + kRowwiseThreads - 1) / kRowwiseThreads);
     const int words = packed_bytes / 16;
     const int wide = pitch % 16 == 0 && (uintptr_t)chars % 16 == 0;
     cudaStream_t s = (cudaStream_t)stream;
     if (use_shared) {
-        const cudaError_t rc = shared_bytes(dfa_values_kernel<true>, packed_bytes);
+        const cudaError_t rc = shared_bytes(dfa_rowwise_kernel<true>,
+                                            packed_bytes);
         if (rc != cudaSuccess) {
-            cudaGetLastError();  // clear it: it is reported here
+            cudaGetLastError();
             return (int)rc;
         }
-        dfa_values_kernel<true><<<blocks, kValueThreads, packed_bytes, s>>>(
+        dfa_rowwise_kernel<true><<<blocks, kRowwiseThreads, packed_bytes, s>>>(
             (const uint8_t*)chars, count, pitch, (const int32_t*)lens,
             (const uint8_t*)packed, words, n_classes, accept0, wide,
             (uint8_t*)out);
     } else {
-        dfa_values_kernel<false><<<blocks, kValueThreads, 0, s>>>(
+        dfa_rowwise_kernel<false><<<blocks, kRowwiseThreads, 0, s>>>(
             (const uint8_t*)chars, count, pitch, (const int32_t*)lens,
             (const uint8_t*)packed, words, n_classes, accept0, wide,
             (uint8_t*)out);
@@ -383,14 +749,76 @@ extern "C" void dpq_dfa_stream_host(
                             accept0, hits, seen);
 }
 
+template <int MODE, int PIECE>
+static void dpq_values_rows(const uint8_t* chars, long long count, int pitch,
+                            const int32_t* lens, const uint8_t* table,
+                            int n_classes, int accept0, uint8_t* out)
+{
+    for (long long v = 0; v < count; ++v) {
+        const int32_t lim = dpq_row_lim(lens[v], pitch);
+        uint32_t st = 0, acc = (uint32_t)accept0;
+        for (int32_t w = 0;; ++w) {
+            dpq_chunk q[DPQ_WINDOW / 16];
+            dpq_load_window<PIECE>(chars + v * pitch + DPQ_WINDOW * w,
+                                   dpq_window_bytes(pitch, w), q);
+            dpq_walk_window<MODE>(q, lim - DPQ_WINDOW * w, st, acc, table,
+                                  n_classes);
+            if (DPQ_WINDOW * (w + 1) >= lim) break;
+        }
+        out[v] = (uint8_t)dpq_value_accept<MODE>(st, acc, table);
+    }
+}
+
+// The kernel's loads for `pitch` and chars (dpq_piece_bytes).
+template <int MODE>
+static void dpq_values_host_mode(const uint8_t* chars, long long count,
+                                 int pitch, const int32_t* lens,
+                                 const uint8_t* table, int n_classes,
+                                 int accept0, uint8_t* out)
+{
+    switch (dpq_piece_bytes(pitch, chars)) {
+    case 16:
+        return dpq_values_rows<MODE, 16>(chars, count, pitch, lens, table,
+                                         n_classes, accept0, out);
+    case 8:
+        return dpq_values_rows<MODE, 8>(chars, count, pitch, lens, table,
+                                        n_classes, accept0, out);
+    case 4:
+        return dpq_values_rows<MODE, 4>(chars, count, pitch, lens, table,
+                                        n_classes, accept0, out);
+    default:
+        return dpq_values_rows<MODE, 1>(chars, count, pitch, lens, table,
+                                        n_classes, accept0, out);
+    }
+}
+
+// mode: DPQ_FOLDED (the table folded first, as a block of the kernel does)
+// or either packed mode.
 extern "C" void dpq_dfa_values_host(
     const uint8_t* chars, long long count, int pitch, const int32_t* lens,
-    const uint8_t* packed, int n_classes, int accept0, uint8_t* out)
+    const uint8_t* packed, int n_states, int n_classes, int accept0, int mode,
+    uint8_t* out)
 {
-    const int wide = pitch % 16 == 0 && (uintptr_t)chars % 16 == 0;
-    for (long long v = 0; v < count; ++v)
-        out[v] = dpq_dfa_value<false>(chars + v * pitch, pitch, lens[v], wide,
-                                      packed, (const uint16_t*)(packed + 256),
-                                      n_classes, accept0);
+    if (mode != DPQ_FOLDED || n_states > DPQ_FOLD_MAX_STATES) {
+        dpq_values_host_mode<DPQ_PACKED_SHARED>(chars, count, pitch, lens,
+                                                packed, n_classes, accept0,
+                                                out);
+        return;
+    }
+    uint32_t* fold = (uint32_t*)malloc((size_t)dpq_fold_bytes(n_states));
+    for (int32_t s = 0; s < n_states; ++s)
+        fold[s * DPQ_FOLD_ROW + 256] = s == 0 ? (uint32_t)accept0 : 0;
+    const uint16_t* tab = (const uint16_t*)(packed + 256);
+    for (int32_t b = 0; b < 256; ++b)
+        for (int32_t s = 0; s < n_states; ++s) {
+            const uint32_t e = tab[s * n_classes + packed[b]];
+            uint32_t next;
+            fold[s * DPQ_FOLD_ROW + b] = dpq_fold_entry(e, 0, &next);
+            if (e >> 15) fold[next * DPQ_FOLD_ROW + 256] = 1;
+        }
+    dpq_values_host_mode<DPQ_FOLDED>(chars, count, pitch, lens,
+                                     (const uint8_t*)fold, n_classes, accept0,
+                                     out);
+    free(fold);
 }
 #endif

@@ -15,13 +15,17 @@ a Python loop of PyTorch ops (about 40 launches a byte step).
 * `value_walk` — the per-value walk over a [L, P] u8 pad_strings matrix;
   [L] bool accepts, what `ops/scan.dfa_match` returns.
 
-What bounds it on the H100: operations and load latency, not bytes (see
-`csrc/dfa_walk.cu`).  The transition table is data (`pack_table`: a byte ->
-class map and a [S, C] uint16 table whose entries carry the next state and
-its accept bit), so one `nvcc` run serves every pattern and a new pattern's
-first query builds nothing.  A launch stages the table in shared memory
-while that keeps the kernel more than half its resident blocks (`stages`)
-and reads it from device memory otherwise; the two variants are one walk.
+What bounds them on the H100 (see `csrc/dfa_walk.cu`): the page walk, its
+operations and load latency; the per-value walk, the bytes of its rows,
+which each thread of a persistent grid loads into registers a 64-byte
+window ahead of the one it walks.  The transition table is data
+(`pack_table`: a byte -> class map and a [S, C] uint16 table whose entries
+carry the next state and its accept bit), so one `nvcc` run serves every
+pattern and a new pattern's first query builds nothing.  A launch stages
+the table in shared memory while that keeps the kernel more than half its
+resident blocks (`stages`) and reads it from device memory otherwise; the
+per-value walk folds a staged table of up to `FOLD_MAX_STATES` states into
+a byte-indexed one (one load a byte).  The variants are one walk.
 
 CPU tensors take the plain versions (`stream_walk_plain`, `value_walk_plain`);
 CUDA tensors launch the kernel or raise.  Both entries share `launches`.
@@ -45,6 +49,16 @@ from .stream_matcher import CHUNK, unchunk_stream
 launches = 0  # kernel launches of either entry (one per call on the card)
 
 MAX_STATES = 1 << 15  # an entry holds the next state in 15 bits
+# The per-value walk's folded table (csrc/dfa_walk.cu): a row of 257 words
+# a state (the next rows' addresses for the 256 bytes, and the accept), at
+# most 64 states (65,792 bytes).
+FOLD_ROW_BYTES = 1028
+FOLD_MAX_STATES = 64
+# the per-value walk's table modes, as csrc/dfa_walk.cu numbers them
+FOLDED, PACKED_SHARED, PACKED_GLOBAL = 0, 1, 2
+MODE_NAMES = {FOLDED: "folded table in shared memory",
+              PACKED_SHARED: "packed table in shared memory",
+              PACKED_GLOBAL: "packed table in device memory"}
 
 _device_tables: OrderedDict = OrderedDict()  # key -> (packed, tensor)
 
@@ -57,8 +71,11 @@ def _lib():
                                    i, i, vp, vp, vp]
     lib.dpq_dfa_stream.restype = i
     lib.dpq_dfa_values.argtypes = [vp, ctypes.c_longlong, i, vp, vp, i, i, i,
-                                   i, vp, vp]
+                                   i, i, i, vp, vp]
     lib.dpq_dfa_values.restype = i
+    lib.dpq_dfa_values_rowwise.argtypes = [vp, ctypes.c_longlong, i, vp, vp,
+                                           i, i, i, i, vp, vp]
+    lib.dpq_dfa_values_rowwise.restype = i
     lib.dpq_dfa_blocks_per_sm.argtypes = [i, i]
     lib.dpq_dfa_blocks_per_sm.restype = i
     return lib
@@ -70,17 +87,45 @@ def prepare() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def stages(device_index: int, values: bool, table_bytes: int) -> bool:
+def blocks_per_sm(device_index: int, walk: int, staged_bytes: int) -> int:
+    """Blocks one SM of CUDA device `device_index` (the current device)
+    holds at once: of the page walk (`walk` 0) or of the per-value walk
+    with the folded (1) or the packed (2) table, `staged_bytes` of it in
+    shared memory (0: the variant that reads the table from device
+    memory)."""
+    return _lib().dpq_dfa_blocks_per_sm(walk, staged_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def stages(device_index: int, values: bool, table_bytes: int,
+           folded: bool = False) -> bool:
     """Whether a launch on CUDA device `device_index` (the current device)
-    stages a packed table of `table_bytes` in shared memory: where the
-    staged variant of the walk (`values`: the per-value walk, else the page
-    walk) keeps more than half the blocks an SM that the device-memory
-    variant holds.  Every block copies the whole table, and a table that
-    costs more blocks leaves too few warps to hide the walk's load latency
-    (`utils/probe_dfa_walk.py`; PERF.md, K3)."""
-    lib = _lib()
-    return (2 * lib.dpq_dfa_blocks_per_sm(int(values), table_bytes)
-            > lib.dpq_dfa_blocks_per_sm(int(values), 0))
+    stages a table of `table_bytes` in shared memory: where the staged
+    variant of the walk (`values`: the per-value walk, whose staged table
+    is `folded` or packed; else the page walk) keeps more than half the
+    blocks an SM that the device-memory variant holds.  Every block copies
+    the whole table, and a table that costs more blocks leaves too few
+    warps to hide the walk's latency (`utils/probe_dfa_walk.py`; PERF.md,
+    K3)."""
+    walk = (1 if folded else 2) if values else 0
+    return (2 * blocks_per_sm(device_index, walk, table_bytes)
+            > blocks_per_sm(device_index, walk, 0))
+
+
+def value_mode(packed: "PackedTable", device_index: int,
+               staged: bool | None = None) -> tuple[int, int]:
+    """(mode, bytes of the table in shared memory) of a per-value walk
+    under `packed` on CUDA device `device_index`: staged, the table is
+    folded where it has at most `FOLD_MAX_STATES` states and packed
+    otherwise; `staged` None stages it by `stages`."""
+    folded = packed.n_states <= FOLD_MAX_STATES
+    nbytes = (-(-FOLD_ROW_BYTES * packed.n_states // 16) * 16 if folded
+              else len(packed.data))
+    if staged is None:
+        staged = stages(device_index, True, nbytes, folded)
+    if not staged:
+        return PACKED_GLOBAL, 0
+    return (FOLDED if folded else PACKED_SHARED), nbytes
 
 
 @dataclass(frozen=True)
@@ -221,37 +266,75 @@ def value_walk_plain(chars: torch.Tensor, lens: torch.Tensor, dfa):
     return acc[state.long()]
 
 
+@functools.lru_cache(maxsize=None)
+def _value_grid(device_index: int, mode: int, staged_bytes: int) -> int:
+    """The persistent grid of a per-value walk: the blocks the device's
+    SMs hold at once."""
+    walk = 2 if mode == PACKED_SHARED else 1
+    return (torch.cuda.get_device_properties(device_index).multi_processor_count
+            * blocks_per_sm(device_index, walk, staged_bytes))
+
+
+def _check_values(chars: torch.Tensor, lens: torch.Tensor):
+    dev = chars.device
+    _check_cuda(dev)
+    if not chars.is_contiguous():
+        raise ValueError("chars must be contiguous")
+    count = chars.shape[0]
+    _check_int32("lens", lens, dev, count)
+    return dev, count, chars.shape[1]
+
+
 def value_walk(chars: torch.Tensor, lens: torch.Tensor, dfa, *,
                staged: bool | None = None) -> torch.Tensor:
     """The accept of each value of `chars` ([L, P] u8, one zero-padded row
     a value) under `dfa`, after its first min(lens[v], P) bytes; lens: [L]
-    int32.  Returns [L] bool.  `staged` as for `stream_walk`.
+    int32.  Returns [L] bool.  `staged` as for `stream_walk` (`value_mode`
+    says which table a staged walk holds).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     global launches
-    dev = chars.device
     if chars.dtype != torch.uint8 or chars.dim() != 2:
         raise ValueError("chars must be a 2-D uint8 tensor")
-    if dev.type == "cpu":
+    if chars.device.type == "cpu":
         return value_walk_plain(chars, lens, dfa)
-    _check_cuda(dev)
-    if not chars.is_contiguous():
-        raise ValueError("chars must be contiguous")
-    count, pitch = chars.shape
-    _check_int32("lens", lens, dev, count)
+    dev, count, pitch = _check_values(chars, lens)
     out = torch.empty((count,), dtype=torch.bool, device=dev)
     if count == 0:
         return out
     packed, table = _device_table(dfa, dev)
-    if staged is None:
-        staged = stages(dev.index, True, table.numel())
+    mode, nbytes = value_mode(packed, dev.index, staged)
     rc = _lib().dpq_dfa_values(
         chars.data_ptr(), count, pitch, lens.data_ptr(), table.data_ptr(),
-        table.numel(), packed.n_classes, packed.accept0, int(staged),
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        table.numel(), packed.n_states, packed.n_classes, packed.accept0,
+        mode, _value_grid(dev.index, mode, nbytes), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"table-DFA value walk launch failed: cudaError "
                            f"{rc}")
     launches += 1
+    return out
+
+
+def value_walk_rowwise(chars: torch.Tensor, lens: torch.Tensor, dfa, *,
+                       staged: bool = True) -> torch.Tensor:
+    """The one-thread-a-value walk that `value_walk`'s kernel replaced,
+    on CUDA tensors only: the yardstick `chip_smoke.py` and
+    `utils/probe_value_walk.py` time `value_walk` against.  No route calls
+    it, and it counts no launch."""
+    if chars.dtype != torch.uint8 or chars.dim() != 2:
+        raise ValueError("chars must be a 2-D uint8 tensor")
+    dev, count, pitch = _check_values(chars, lens)
+    out = torch.empty((count,), dtype=torch.bool, device=dev)
+    if count == 0:
+        return out
+    packed, table = _device_table(dfa, dev)
+    rc = _lib().dpq_dfa_values_rowwise(
+        chars.data_ptr(), count, pitch, lens.data_ptr(), table.data_ptr(),
+        table.numel(), packed.n_classes, packed.accept0, int(staged),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"row-wise value walk launch failed: cudaError "
+                           f"{rc}")
     return out

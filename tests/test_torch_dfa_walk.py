@@ -236,7 +236,7 @@ def host_lib(tmp_path_factory):
                                         i, i, vp, vp]
     lib.dpq_dfa_stream_host.restype = None
     lib.dpq_dfa_values_host.argtypes = [vp, ctypes.c_longlong, i, vp, vp, i,
-                                        i, vp]
+                                        i, i, i, vp]
     lib.dpq_dfa_values_host.restype = None
     return lib
 
@@ -259,15 +259,24 @@ def _host_stream(lib, dfa, pm, plen, nn, steps=None):
     return hits, seen
 
 
-def _host_values(lib, dfa, chars, lens):
+def _host_values(lib, dfa, chars, lens, mode=dfa_walk.FOLDED):
+    """The g++ build of the kernel's per-value walk: the same windows,
+    loads and byte steps, with the folded table (automata up to
+    FOLD_MAX_STATES states) or the packed one."""
     packed = dfa_walk.pack_table(dfa)
     lens = np.ascontiguousarray(lens, np.int32)
     out = np.full(chars.shape[0], 7, np.uint8)
     lib.dpq_dfa_values_host(chars.ctypes.data, chars.shape[0], chars.shape[1],
                             lens.ctypes.data, packed.data.ctypes.data,
-                            packed.n_classes, packed.accept0,
-                            out.ctypes.data)
+                            packed.n_states, packed.n_classes, packed.accept0,
+                            mode, out.ctypes.data)
     return out.astype(bool)
+
+
+def _host_modes(dfa):
+    """The per-value walk's table modes that apply to `dfa`."""
+    folds = dfa.byte_classes().table.shape[0] <= dfa_walk.FOLD_MAX_STATES
+    return [dfa_walk.FOLDED] * folds + [dfa_walk.PACKED_SHARED]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -327,14 +336,114 @@ def test_host_value_walk_matches_jax(host_lib, case, pitch):
 
     dfa, chars, lens = _value_case(case, pitch)
     want = dfa_match(np, chars, lens, dfa.table, dfa.accept)
-    np.testing.assert_array_equal(_host_values(host_lib, dfa, chars, lens),
-                                  want)
     # the same rows at an address that is not 16-byte aligned
     buf = np.zeros(chars.size + 1, np.uint8)
     shifted = buf[1:].reshape(chars.shape)
     shifted[:] = chars
-    np.testing.assert_array_equal(_host_values(host_lib, dfa, shifted, lens),
-                                  want)
+    for mode in _host_modes(dfa):
+        for c in (chars, shifted):
+            np.testing.assert_array_equal(
+                _host_values(host_lib, dfa, c, lens, mode), want,
+                err_msg=f"mode {mode}, aligned {c is chars}")
+
+
+# The per-value walk's edges (csrc/dfa_walk.cu: a persistent grid of
+# 512-thread blocks whose threads walk every stride-th row in windows of 64
+# bytes, loaded 16, 8, 4 or 1 bytes at a time by the pitch and the
+# address): {name: (L, P, lengths, byte offset of the first row)}.  Lengths
+# "random" hold a 0 and one past the pitch; "same": every value fills its
+# row; "skew": most values 0-3 bytes, a tenth past the pitch.  300,000 rows
+# give an H100's grid (132 SMs x 1,024 threads) two or three rows a thread.
+VALUE_EDGES = {
+    "L=1": (1, 64, "random", 0),
+    "L=31": (31, 64, "random", 0),
+    "L=32": (32, 64, "random", 0),
+    "L=33": (33, 64, "random", 0),
+    "L=511": (511, 64, "random", 0),
+    "L=512": (512, 64, "random", 0),
+    "L=513": (513, 64, "random", 0),
+    "L=2049": (2049, 64, "random", 0),
+    "L=300000": (300_000, 64, "skew", 0),
+    "P=13": (300, 13, "random", 0),
+    "P=13 rows sliced": (300, 13, "random", 13),
+    "P=64 offset 1": (300, 64, "random", 1),
+    "P=64 offset 8": (300, 64, "random", 8),
+    "P=20": (300, 20, "random", 0),
+    "P=24": (300, 24, "random", 0),
+    "P=200": (300, 200, "random", 0),
+    "P=256": (300, 256, "random", 0),
+    "same length": (1000, 64, "same", 0),
+    "skew": (1000, 64, "skew", 0),
+    "skew P=256": (1000, 256, "skew", 0),
+}
+# automata of the edge cases: the folded table, a packed one that can be
+# staged (300 x 256, 153,856 bytes) and one that cannot (4,096 x 256)
+EDGE_DFAS = [TABLE_PATTERNS[0], "random 300x256", "random 4096x256"]
+
+
+def _edge_dfa(name: str) -> DFA:
+    if name.startswith("random"):
+        s, c = (int(x) for x in name.split()[1].split("x"))
+        return _random_dfa(np.random.default_rng(s + c), s, c)
+    return compile_pattern(name)
+
+
+def _edge_values(name: str):
+    """(chars [L, P] u8 inside a flat buffer at the edge's byte offset,
+    lens [L] int32): rows cut from vocabulary text (the bytes past each
+    length are text too, which the walk must not read)."""
+    n, pitch, kind, offset = VALUE_EDGES[name]
+    rng = np.random.default_rng(sorted(VALUE_EDGES).index(name))
+    text = np.frombuffer(b" ".join(
+        VOCAB[int(k)] for k in rng.integers(0, len(VOCAB), 60 + pitch)),
+        np.uint8)
+    starts = rng.integers(0, len(text) - pitch, n)
+    buf = np.zeros(offset + n * pitch, np.uint8)
+    chars = buf[offset:].reshape(n, pitch)
+    chars[:] = text[starts[:, None] + np.arange(pitch)]
+    if kind == "same":
+        lens = np.full(n, pitch, np.int32)
+    elif kind == "skew":
+        lens = np.where(rng.random(n) < 0.9, rng.integers(0, 4, n),
+                        pitch + 5).astype(np.int32)
+    else:
+        lens = rng.integers(0, pitch + 10, n).astype(np.int32)
+        lens[:2] = [0, pitch + 9][:n]
+    return chars, lens
+
+
+@pytest.mark.parametrize("dfa_name", EDGE_DFAS[:2])
+@pytest.mark.parametrize("edge", list(VALUE_EDGES))
+def test_host_value_walk_edges(host_lib, edge, dfa_name):
+    from duckdb_parquet_parser_tpu.ops.scan import dfa_match
+
+    dfa = _edge_dfa(dfa_name)
+    chars, lens = _edge_values(edge)
+    want = dfa_match(np, np.ascontiguousarray(chars), lens, dfa.table,
+                     dfa.accept)
+    for mode in _host_modes(dfa):
+        np.testing.assert_array_equal(
+            _host_values(host_lib, dfa, chars, lens, mode), want,
+            err_msg=f"mode {mode}")
+    np.testing.assert_array_equal(
+        dfa_walk.value_walk(torch.from_numpy(np.ascontiguousarray(chars)),
+                            torch.from_numpy(lens), dfa).numpy(), want)
+
+
+def test_value_mode_folds_small_automata():
+    """Staged, an automaton of up to FOLD_MAX_STATES states walks the
+    folded table (257 words a state), a larger one the packed table;
+    unstaged, the packed table in device memory."""
+    small = dfa_walk.pack_table(compile_pattern(TABLE_PATTERNS[0]))
+    big = dfa_walk.pack_table(_edge_dfa("random 300x256"))
+    assert small.n_states <= dfa_walk.FOLD_MAX_STATES < big.n_states
+    assert dfa_walk.value_mode(small, 0, staged=True) == (
+        dfa_walk.FOLDED, -(-1028 * small.n_states // 16) * 16)
+    assert dfa_walk.value_mode(big, 0, staged=True) == (
+        dfa_walk.PACKED_SHARED, len(big.data))
+    for p in (small, big):
+        assert dfa_walk.value_mode(p, 0, staged=False) == (
+            dfa_walk.PACKED_GLOBAL, 0)
 
 
 def test_pack_table_layout():
@@ -551,6 +660,50 @@ def test_kernel_matches_plain(cuda, case):
                                dfa_walk.value_walk_plain(c, ln, dfa))
     torch.cuda.synchronize()
     assert dfa_walk.launches == before + 4 * len(variants)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(VALUE_EDGES))
+def test_value_kernel_edges_match_plain(cuda, edge):
+    """The per-value walk at the edges of its blocks, grid, windows and
+    loads, in every variant each automaton takes (the folded and the
+    packed table staged, the packed table in device memory) and the one
+    the wrapper picks, one launch a call."""
+    chars, lens = _edge_values(edge)
+    n, pitch, _kind, offset = VALUE_EDGES[edge]
+    buf = torch.zeros(offset + n * pitch, dtype=torch.uint8, device=cuda)
+    c = buf[offset:].view(n, pitch)
+    c.copy_(torch.from_numpy(np.ascontiguousarray(chars)))
+    assert c.is_contiguous() and (c.data_ptr() % 16 != 0) == (offset % 16 != 0)
+    ln = torch.from_numpy(lens).to(cuda)
+    index = cuda.index or 0
+    for name in EDGE_DFAS:
+        dfa = _edge_dfa(name)
+        want = dfa_walk.value_walk_plain(c, ln, dfa)
+        mode, staged_bytes = dfa_walk.value_mode(dfa_walk.pack_table(dfa),
+                                                 index, True)
+        fits = dfa_walk.blocks_per_sm(index, 1 + mode, staged_bytes) > 0
+        variants = [None, False] + [True] * fits
+        for staged in variants:
+            before = dfa_walk.launches
+            got = dfa_walk.value_walk(c, ln, dfa, staged=staged)
+            assert dfa_walk.launches == before + 1
+            assert torch.equal(got, want), (name, staged)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_rowwise_yardstick_matches_plain(cuda):
+    dfa = compile_pattern(TABLE_PATTERNS[0])
+    chars, lens = _edge_values("P=64 offset 8")
+    c = torch.from_numpy(np.ascontiguousarray(chars)).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    before = dfa_walk.launches
+    for staged in (True, False):
+        assert torch.equal(dfa_walk.value_walk_rowwise(c, ln, dfa,
+                                                       staged=staged),
+                           dfa_walk.value_walk_plain(c, ln, dfa))
+    assert dfa_walk.launches == before
 
 
 @pytest.mark.cuda

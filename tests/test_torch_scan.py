@@ -143,6 +143,60 @@ def test_cold_scan_matches_reference(column, exact):
                                     stats_prune=False)
                 _same(ref, port.scan(p, negate=negate), msg)
 
+
+@pytest.fixture(scope="module")
+def null_page_file(tmp_path_factory):
+    """The `mixed_rgs` layout of tests/test_scan.py (a dictionary row group,
+    then a PLAIN one) under the seed that ends the PLAIN row group in a page
+    whose one value is null."""
+    from duckdb_parquet_parser_tpu.host.reader import ParquetReader as JR
+
+    rng = np.random.default_rng(169)
+    path = tmp_path_factory.mktemp("nullpage") / "m.parquet"
+    w = ParquetWriter(str(path), [ColumnSpec("s", ParquetType.BYTE_ARRAY,
+                                             optional=True)],
+                      key_value={"pad": "x" * 512})
+    w.write_row_group({"s": fixtures.random_strings(rng, 1000, n_unique=8,
+                                                    null_p=0.1)})
+    w.write_row_group({"s": fixtures.random_strings(rng, 1000, null_p=0.1)})
+    w.close()
+    a = JR(str(path)).prescan("s", pad_strings=8).arrays
+    last = int(np.flatnonzero(a["page_kind"] != 1)[-1])
+    assert (a["page_num_values"][last], a["page_nn"][last]) == (1, 0)
+    return str(path)
+
+
+@pytest.mark.parametrize("negate", [False, True])
+@pytest.mark.parametrize("pattern", ["", "^\x00$"])
+def test_all_null_page_matches_reference(null_page_file, pattern, negate):
+    """A page without a non-null value participates in no count: the
+    port's `scan_batch`, `ResidentColumn.scan` and `matching_rows` against
+    the reference's `scan_batch`, `ResidentColumn.scan` and
+    `matching_rows`, both polarities, on the CPU."""
+    from duckdb_parquet_parser_tpu.host.reader import ParquetReader as JR
+    from duckdb_parquet_parser_tpu.models.scan import ResidentColumn as JRC
+    from duckdb_parquet_parser_tpu.models.scan import ScanEngine as JEngine
+    from duckdb_parquet_parser_tpu_torch.ops.scan import scan_batch
+
+    path = null_page_file
+    want = _numpy_golden(path, pattern, negate)
+    eng = ScanEngine(path)
+    batch = eng.reader.prescan("s", pad_strings=8)
+    msg = f"{pattern!r} negate={negate}"
+    got = scan_batch(batch, pattern, negate=negate, device="cpu")
+    _same(got, want, msg)
+    _same(eng.resident("s", device="cpu").scan(pattern, negate=negate),
+          want, msg)
+    _same(JRC(JR(path), "s").scan(pattern, negate=negate), want, msg)
+    rows = eng.matching_rows("s", pattern, negate=negate, device="cpu")
+    np.testing.assert_array_equal(
+        rows, JEngine(path).matching_rows("s", pattern, negate=negate))
+    assert len(rows) == int(want.match_counts.sum())
+    empty = batch.arrays["page_nn"] == 0
+    assert empty.any() and not got.value_counts[empty].any()
+    assert not got.match_counts[empty].any()
+
+
 def test_unsupported_patterns_and_columns(tmp_path):
     rng = np.random.default_rng(2)
     path = fixtures.mixed_file(str(tmp_path / "k.parquet"), rng)

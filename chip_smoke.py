@@ -22,18 +22,21 @@ their seed; and the block scans (`scan_batched`, `scan_streaming`), the
 row-level matches (`matching_rows`) and the fused single step
 (`single_chip_forward`) equal the native scan.
 Then the table-DFA path (kernel K3, for patterns outside the
-register-machine family): K3's page walk against its plain version on both
-resident l_comment buckets for three such patterns and under random tables
-of 300 and 4,096 states (staged in shared memory / read from device memory),
-its per-value walk in every variant on l_comment's `str_padded`, city's
+register-machine family): K3's page walk, and the bytewise walk it
+replaced, against the plain version on both resident l_comment buckets and
+its split layout (256-byte segments) for three such patterns and under
+random tables of 300 and 4,096 states (staged in shared memory / read from
+device memory), its per-value walk in every variant on l_comment's `str_padded`, city's
 `dict_padded` and 20 edge shapes of its blocks, grid and windows (rows
 1-300000, pitches 13-256,
 rows off 16-byte alignment); the resident queries (plain and negated),
 `scan_streaming` and `matching_rows` against the native scan, with K3's
 launches counted and none of K1's; a never-seen table-DFA pattern's first
 query, which builds nothing; K3 timed beside its plain version, its bound
-and (the per-value walk) the one-thread-a-row kernel it replaced and the
-32-byte sectors the rows need; one warm query profiled with K3 and with
+and the kernel each walk replaced, timed in turns (the page walk on both
+buckets and the split layout, its bound recounted from the operations it
+needs a byte and a value, the shared loads' floor beside it; the per-value
+walk with the 32-byte sectors the rows need); one warm query profiled with K3 and with
 the plain loop it replaced, and the K3 launches its profiles record.
 Then the front door and the sharded paths: the command line (`cli.main`:
 file info, a regex scan on the card that prints what the native scan
@@ -1376,17 +1379,15 @@ def random_dfa(rng, n_states: int, n_classes: int):
                f"random {n_states}x{n_classes}")
 
 
-def variant_name(staged: bool) -> str:
-    return "shared memory" if staged else "device memory"
-
-
-def value_variant(packed) -> str:
-    """The table the wrapper's per-value walk holds under `packed`."""
+def value_variant(packed, values: bool = True) -> str:
+    """The table the wrapper's walk (`values`: the per-value walk, else the
+    page walk) holds under `packed`."""
     import torch
 
     from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
 
-    mode, nbytes = dfa_walk.value_mode(packed, torch.cuda.current_device())
+    mode, nbytes = dfa_walk.table_mode(packed, torch.cuda.current_device(),
+                                       values)
     return f"{dfa_walk.MODE_NAMES[mode]} ({nbytes} bytes staged)"
 
 
@@ -1464,11 +1465,12 @@ def check_value_edges(device):
 def check_table_kernels(col, eng, deng, device):
     """(a) K3's page walk against its plain version, bit for bit, in both
     variants (the table staged in shared memory, and read from device
-    memory) and in the one the wrapper picks, on both resident l_comment
-    buckets for each table-DFA pattern, and on random pages under a random
-    300-state table of 256 byte classes (153,856 bytes, staged above 48 KB
-    when forced) and a 4,096-state one (too large to stage: device memory
-    only); (b) its per-value walk against its plain version, in every
+    memory) and in the one the wrapper picks, and the bytewise walk it
+    replaced, on both resident l_comment buckets and on its split layout
+    (256-byte segments) for each table-DFA pattern, and on random pages
+    under a random 300-state table of 256 byte classes (153,856 bytes,
+    staged above 48 KB when forced) and a 4,096-state one (too large to
+    stage: device memory only); (b) its per-value walk against its plain version, in every
     variant, on l_comment's `str_padded` and city's `dict_padded` (the
     row-wise yardstick too), under the random tables and at the edge shapes
     of its blocks and windows (`check_value_edges`).  Returns the
@@ -1482,38 +1484,39 @@ def check_table_kernels(col, eng, deng, device):
         stream_matcher,
     )
     from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
+    from duckdb_parquet_parser_tpu_torch.utils.probe_stream_walk import (
+        layouts,
+    )
 
     per_block = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
-    dev_index = torch.cuda.current_device()
-    for bk in col._buckets:
-        if not bk["has_plain"]:
-            continue
-        plain_stream = stream_matcher.unchunk_stream(bk["stream"],
-                                                     bk["steps"])
+    for label, (stream, pl, nv, steps) in layouts(col).items():
+        plain_stream = stream_matcher.unchunk_stream(stream, steps)
         for pat in TABLE_PATTERNS:
             dfa = compile_pattern(pat)
-            args = (bk["walk_plen"], bk["walk_nn"], dfa, bk["steps"])
+            args = (pl, nv, dfa, steps)
             t0 = time.perf_counter()
             h0, s0 = dfa_walk.stream_walk_plain(plain_stream, *args)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
             for staged in (None, False, True):
-                h1, s1 = dfa_walk.stream_walk(bk["stream"], *args,
-                                              staged=staged)
+                h1, s1 = dfa_walk.stream_walk(stream, *args, staged=staged)
                 if not (torch.equal(h1, h0) and torch.equal(s1, s0)):
                     raise AssertionError(
                         f"K3 (staged={staged}) disagrees with its plain "
-                        f"version on {pat!r}, bucket "
-                        f"{tuple(bk['stream'].shape)}")
-            size = len(dfa_walk.pack_table(dfa).data)
+                        f"version on {pat!r}, {label}")
+            before = dfa_walk.launches
+            if (not all(map(torch.equal, dfa_walk.stream_walk_bytewise(
+                    stream, *args), (h0, s0)))
+                    or dfa_walk.launches != before):
+                raise AssertionError(f"the bytewise yardstick disagrees on "
+                                     f"{pat!r}, {label}, or counted a launch")
             log(f"K3 page walk vs plain on {pat!r} ({dfa.n_states} states, "
-                f"{dfa.byte_classes().n_classes} classes, {size} table "
-                f"bytes; the wrapper picks "
-                f"{variant_name(dfa_walk.stages(dev_index, False, size))}) "
-                f"over the l_comment bucket {tuple(bk['stream'].shape)}: "
-                f"both variants exact, {int(h1.sum())} hits ({plain_s:.1f} s "
-                "for the plain loop)")
+                f"{dfa.byte_classes().n_classes} classes; the wrapper picks "
+                f"the {value_variant(dfa_walk.pack_table(dfa), False)}) over "
+                f"the l_comment {label}: both variants and the bytewise "
+                f"yardstick exact, {int(h1.sum())} hits ({plain_s:.1f} s for "
+                "the plain loop)")
         del plain_stream
     rng = np.random.default_rng(53)
     pm, plen, nn = random_pages(rng, 3000, 6, 40, alphabet=bytes(range(256)))
@@ -1546,8 +1549,8 @@ def check_table_kernels(col, eng, deng, device):
                                      f"its plain version under {dfa.pattern}")
         log(f"K3 vs plain under a {dfa.pattern} table ({size} bytes; "
             f"{per_block} bytes of shared memory a block; the wrapper picks "
-            f"{variant_name(dfa_walk.stages(dev_index, False, size))} for the "
-            f"page walk, the {value_variant(packed)} for the per-value "
+            f"the {value_variant(packed, False)} for the page walk, the "
+            f"{value_variant(packed)} for the per-value "
             f"walk): page walk over {len(plen)} random pages exact in "
             f"{'both variants' if fits else 'device memory'}, per-value walk "
             f"over {tuple(chars.shape)} in "
@@ -1686,11 +1689,31 @@ def plain_table_walk():
         dfa_walk.stream_walk = real
 
 
-# The operations K3's page walk needs, one machine instruction each, as the
-# byte loop of csrc/dfa_walk.cu states it: its transition, then the boundary
-# control it shares with K1 (PAGE_CONTROL_OPS_PER_BYTE).  The loads of the
-# class and of the entry are memory, not operations.
+# The operations K3's page walk needs, one machine instruction each, as
+# csrc/dfa_walk.cu states it: a value byte of a chunk, walked unrolled
+# through the folded table (its load is memory, not an operation) ...
 K3_PAGE_OPS_PER_BYTE = {
+    "take the byte out of the chunk": (1, "int32"),
+    "the next row's address, row + 4 * byte": (1, "fma"),
+    "the byte's bit of the chunk's mask": (1, "int32"),
+}
+# ... and a value's boundary, once a value (the accept's load is memory).
+K3_PAGE_OPS_PER_VALUE = {
+    "add the accept, count the value": (2, "fma"),
+    "the lane's tests: nn values seen, the next prefix inside the walk": (
+        2, "int32"),
+    "take the 4-byte prefix out of two chunks (pick the words, shift)": (
+        3, "int32"),
+    "the value's first byte and end, the bytes left to the walk's end": (
+        3, "fma"),
+    "the value ends inside the walk": (1, "int32"),
+    "reset the state": (1, "fma"),
+    "the masks of its first and last chunks": (4, "int32"),
+}
+# The bytewise walk's count, the bound before the redesign, kept so that the
+# history of the bound reads: each byte's transition, then the boundary
+# control it shares with K1 (PAGE_CONTROL_OPS_PER_BYTE).
+K3_BYTEWISE_OPS_PER_BYTE = {
     "entry index state * n_classes + class": (1, "fma"),
     "split the entry: next state, accept": (2, "int32"),
     **PAGE_CONTROL_OPS_PER_BYTE,
@@ -1714,12 +1737,12 @@ def needed_ops(table: dict) -> float:
     return max(int32, total / 2)
 
 
-def loop_ops(kernel: str, variant: str = "ILb1E") -> dict:
+def loop_ops(kernel: str, variant: str) -> dict:
     """What the compiler made of the innermost loop that loads from shared
     memory in K3's `kernel`, the instance whose mangled template arguments
-    are `variant` (the page walk's staged one by default): machine
-    instructions, the memory ones among them, those on the int32 lanes,
-    registers and spills.  A reading beside the bound, not its source."""
+    are `variant`: machine instructions, the memory ones among them, those
+    on the int32 lanes, registers and spills.  A reading beside the bound,
+    not its source."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import build
 
     (name, info), = [kv for kv in build.inspect_source(
@@ -1764,21 +1787,136 @@ def value_stageable(dfa) -> bool:
     return dfa_walk.blocks_per_sm(index, 1 + mode, nbytes) > 0
 
 
-def time_table_kernel(col, str_chars, str_lens, ops_per_s):
-    """(f) K3 at the main path's shapes: the page walk on the larger
-    l_comment bucket and the per-value walk on l_comment's str_padded, each
-    beside its plain version, on the card alone and against its bound from
-    the operations the walk needs (`K3_PAGE_OPS_PER_BYTE`); both variants
-    under the pattern's table and a 153,856-byte random one; then one warm
-    query's wall time, launches and idle share with K3 and, in the same
-    run, with the plain loop."""
-    import numpy as np
+def time_page_walk(col, dfa, ops_per_s):
+    """(f) K3's page walk under `dfa` at the main path's shapes: on both
+    l_comment buckets and on the split layout (its pages cut into 256-byte
+    segments), per call and on the card alone, in turns with the bytewise
+    walk it replaced (the yardstick); on the larger bucket beside its plain
+    version and against its bound, counted from the operations the walk
+    needs a byte and a value (`K3_PAGE_OPS_PER_BYTE`,
+    `K3_PAGE_OPS_PER_VALUE`) and from the bytes it must read, and against
+    the bytewise walk's count (`K3_BYTEWISE_OPS_PER_BYTE`); the shared
+    loads' floor and the compiled chunk loop beside them.  Returns (the
+    kernels line's entry, the larger bucket)."""
     import torch
 
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
         dfa_walk,
         stream_matcher,
     )
+    from duckdb_parquet_parser_tpu_torch.utils.probe_stream_walk import (
+        layouts,
+    )
+
+    dev_index = torch.cuda.current_device()
+    packed = dfa_walk.pack_table(dfa)
+    mode, staged_bytes = dfa_walk.table_mode(packed, dev_index, False)
+    grid = dfa_walk.grid(dev_index, False, mode, staged_bytes)
+    bk = max(col._buckets, key=lambda b: b["stream"].numel())
+    big = f"bucket {list(bk['stream'].shape)}"
+    timings = {}
+    for label, (stream, pl, nv, steps) in layouts(col).items():
+        fns = {"kernel": lambda: dfa_walk.stream_walk(stream, pl, nv, dfa,
+                                                      steps),
+               "bytewise": lambda: dfa_walk.stream_walk_bytewise(
+                   stream, pl, nv, dfa, steps)}
+        t = best_of(fns, 20)
+        alone = {name: float("inf") for name in fns}
+        for _ in range(3):  # on the card alone, in turns
+            for name, fn in fns.items():
+                alone[name] = min(alone[name], queued_ms(fn, 20))
+        timings[label] = {"ms": t["kernel"], "device_ms": alone["kernel"],
+                          "bytewise_ms": t["bytewise"],
+                          "bytewise_device_ms": alone["bytewise"]}
+        log(f"K3 page walk on {label} (n = {stream.shape[1]}, steps "
+            f"{steps}): {t['kernel']:.4f} ms per call, {alone['kernel']:.4f} "
+            f"ms on the card alone; the bytewise walk it replaced "
+            f"{t['bytewise']:.4f} ms per call, {alone['bytewise']:.4f} ms on "
+            f"the card alone (in turns): "
+            f"{alone['bytewise'] / alone['kernel']:.2f}x")
+    args = (bk["walk_plen"], bk["walk_nn"], dfa, bk["steps"])
+    plain_stream = stream_matcher.unchunk_stream(bk["stream"], bk["steps"])
+    plain_ms, (h0, s0) = timed(
+        lambda: dfa_walk.stream_walk_plain(plain_stream, *args), 1)
+    del plain_stream
+    h1, s1 = dfa_walk.stream_walk(bk["stream"], *args)
+    err = max(int((h1 - h0).abs().max()), int((s1 - s0).abs().max()))
+    n = bk["walk_plen"].shape[0]
+    active = torch.where(bk["walk_nn"] > 0,
+                         bk["walk_plen"].clamp(max=bk["steps"]), 0)
+    walked = int(active.sum())
+    values = int(s0.sum())
+    value_bytes = walked - 4 * values  # the prefixes are read, not walked
+    per_byte = needed_ops(K3_PAGE_OPS_PER_BYTE)
+    per_value = needed_ops(K3_PAGE_OPS_PER_VALUE)
+    n_bytes = walked + 16 * n + len(packed.data)
+    b_ms, b_by = bound(n_bytes, per_byte * value_bytes + per_value * values,
+                       ops_per_s)
+    old_per_byte = needed_ops(K3_BYTEWISE_OPS_PER_BYTE)
+    old_ms, _by = bound(n_bytes, old_per_byte * walked, ops_per_s)
+    # one shared load a value byte and a value: 32 a clock an SM at best
+    # (no two lanes of a warp on one bank), half the int32 lanes' rate
+    loads = value_bytes + values
+    lds_ms = loads / (ops_per_s / 2) * 1e3
+    ops = loop_ops("dfa_stream_kernel", f"ILi{mode}E")
+    old_ops = loop_ops("dfa_stream_bytewise_kernel", "ILb1E")
+    t = timings[big]
+    run = -(-n // grid)  # a block's lanes, as csrc/dfa_walk.cu cuts them
+    threads = min(1024, -(-run // 32) * 32)
+    log(f"K3 page walk {dfa.pattern!r} at {list(bk['stream'].shape)} u8, "
+        f"the wrapper's {dfa_walk.MODE_NAMES[mode]} ({staged_bytes} bytes "
+        f"staged), grid {-(-n // threads)} blocks of {threads} threads (the "
+        f"SMs hold {grid}): {t['ms']:.4f} ms per call, {t['device_ms']:.4f} ms "
+        f"on the card alone; the bytewise walk {t['bytewise_device_ms']:.4f} "
+        f"ms on the card alone; plain loop {plain_ms:.1f} ms; {walked} bytes "
+        f"walked, {values} values ({value_bytes} value bytes); the walk needs "
+        f"{per_byte:g} int32 operations a value byte and {per_value:g} a value "
+        f"({sum(k for k, _p in K3_PAGE_OPS_PER_BYTE.values())} and "
+        f"{sum(k for k, _p in K3_PAGE_OPS_PER_VALUE.values())} in all: "
+        f"{K3_PAGE_OPS_PER_BYTE}, {K3_PAGE_OPS_PER_VALUE}); {n_bytes} bytes "
+        f"moved: bound {b_ms:.4f} ms by {b_by} "
+        f"({100 * b_ms / t['device_ms']:.1f}% of the time on the card; the "
+        f"bytewise walk's {100 * b_ms / t['bytewise_device_ms']:.1f}%); the "
+        f"bytewise walk's count ({old_per_byte:g} int32 operations a byte, "
+        f"its boundary control on every byte): {old_ms:.4f} ms, the "
+        f"bytewise walk's share "
+        f"{100 * old_ms / t['bytewise_device_ms']:.1f}%; this walk takes "
+        f"{t['device_ms'] / old_ms:.2f}x that time, which bounds only the "
+        f"bytewise walk); {loads} shared "
+        f"loads: {lds_ms:.4f} ms at 32 a clock an SM, no bank conflicts "
+        f"({100 * lds_ms / t['device_ms']:.1f}%); the compiled chunk loop "
+        f"(16 byte steps): {ops['instructions']} machine instructions "
+        f"({ops['memory']} memory, {ops['int32_ops']} int32; "
+        f"{ops['opcodes']}), {ops['registers']} registers, "
+        f"{ops['spill_bytes']} spill bytes; the bytewise byte loop "
+        f"{old_ops['instructions']} instructions, {old_ops['registers']} "
+        f"registers")
+    k3 = {"max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": None, "shape": f"stream {list(bk['stream'].shape)}, "
+          f"{walked} bytes walked, {values} values, {dfa.n_states} states",
+          "bytewise_ms": t["bytewise_ms"],
+          "bytewise_device_ms": t["bytewise_device_ms"],
+          "bound_ms_bytewise_count": old_ms, "ops_per_byte": per_byte,
+          "ops_per_value": per_value, "shared_load_floor_ms": lds_ms,
+          "table_mode": dfa_walk.MODE_NAMES[mode], "grid": grid,
+          "loop_instructions": ops["instructions"],
+          "registers": ops["registers"], "spill_bytes": ops["spill_bytes"],
+          "layouts": timings}
+    return k3, bk
+
+
+def time_table_kernel(col, str_chars, str_lens, ops_per_s):
+    """(f) K3 at the main path's shapes: the page walk (`time_page_walk`)
+    and the per-value walk on l_comment's str_padded, each beside its
+    plain version and its yardstick, on the card alone and against its
+    bound; both variants under the pattern's table and a 153,856-byte
+    random one; then one warm query's wall time, launches and idle share
+    with K3 and, in the same run, with the plain loop."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
     from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
     from duckdb_parquet_parser_tpu_torch.utils.probe_value_walk import (
         fetch_floor,
@@ -1787,44 +1925,7 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
     pat = TABLE_PATTERNS[0]
     dfa = compile_pattern(pat)
     table_bytes = len(dfa_walk.pack_table(dfa).data)
-    staged = dfa_walk.stages(torch.cuda.current_device(), False, table_bytes)
-    bk = max(col._buckets, key=lambda b: b["stream"].numel())
-    n = bk["walk_plen"].shape[0]
-    args = (bk["walk_plen"], bk["walk_nn"], dfa, bk["steps"])
-    plain_stream = stream_matcher.unchunk_stream(bk["stream"], bk["steps"])
-    t = best_of({"kernel": lambda: dfa_walk.stream_walk(bk["stream"], *args)},
-                20)
-    plain_ms, (h0, s0) = timed(
-        lambda: dfa_walk.stream_walk_plain(plain_stream, *args), 1)
-    del plain_stream
-    h1, s1 = dfa_walk.stream_walk(bk["stream"], *args)
-    err = max(int((h1 - h0).abs().max()), int((s1 - s0).abs().max()))
-    on_card = min(queued_ms(lambda: dfa_walk.stream_walk(bk["stream"], *args),
-                            20) for _ in range(3))
-    active = torch.where(bk["walk_nn"] > 0,
-                         bk["walk_plen"].clamp(max=bk["steps"]), 0)
-    walked = int(active.sum())
-    per_byte = needed_ops(K3_PAGE_OPS_PER_BYTE)
-    ops = loop_ops("dfa_stream_kernel")
-    n_bytes = walked + 16 * n + table_bytes
-    b_ms, b_by = bound(n_bytes, per_byte * walked, ops_per_s)
-    log(f"K3 page walk {pat!r} at {tuple(bk['stream'].shape)} u8, table "
-        f"{table_bytes} bytes in {variant_name(staged)}: {t['kernel']:.4f} ms "
-        f"per call (least of 6 rounds of 20), {on_card:.4f} ms on the card "
-        f"alone; plain loop {plain_ms:.1f} ms; {walked} bytes walked; the walk "
-        f"needs {per_byte:g} int32 operations a byte "
-        f"({sum(n for n, _p in K3_PAGE_OPS_PER_BYTE.values())} in all: "
-        f"{K3_PAGE_OPS_PER_BYTE}); {n_bytes} bytes moved: bound {b_ms:.4f} ms "
-        f"by {b_by} ({100 * b_ms / on_card:.1f}% of the time on the card); "
-        f"the compiled byte loop: {ops['instructions']} machine instructions, "
-        f"{ops['memory']} memory, {ops['int32_ops']} on the int32 lanes "
-        f"({ops['opcodes']}), {ops['registers']} registers, "
-        f"{ops['spill_bytes']} spill bytes")
-    k3 = {"max_abs_err": err, "ms": t["kernel"], "device_ms": on_card,
-          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "library_ms": None, "shape": f"stream {list(bk['stream'].shape)}, "
-          f"{walked} bytes walked, {dfa.n_states} states",
-          "ops_per_byte": per_byte, "loop_instructions": ops["instructions"]}
+    k3, bk = time_page_walk(col, dfa, ops_per_s)
 
     def walk_value():
         return dfa_walk.value_walk(str_chars, str_lens, dfa)
@@ -1906,13 +2007,9 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
                                               staged=st), dfas,
             value_stageable)}
     for walk, by_table in variants.items():
-        if walk == "per-value walk":
-            picks = {label: value_variant(dfa_walk.pack_table(d))
-                     for label, d in dfas.items()}
-        else:
-            picks = {label: variant_name(dfa_walk.stages(
-                torch.cuda.current_device(), False,
-                len(dfa_walk.pack_table(d).data))) for label, d in dfas.items()}
+        picks = {label: value_variant(dfa_walk.pack_table(d),
+                                      walk == "per-value walk")
+                 for label, d in dfas.items()}
         log(f"K3 {walk}, table in device memory / staged in shared memory "
             "(least of 3 rounds of 10): " + "; ".join(
                 f"{label} table {dev_ms:.4f} / "

@@ -13,25 +13,44 @@
 // Layout (ops/kernels/dfa_walk.pack_table): 256 bytes of byte -> class map,
 // then the [S, C] class table as uint16, each entry the next state in bits
 // 0-14 and that state's accept bit in bit 15 (the [T | A] pair as one word:
-// one load gives both), padded to a multiple of 16 bytes.
+// one load gives both), padded to a multiple of 16 bytes.  Up to 64 states,
+// a block folds it in shared memory into a byte-indexed table whose entries
+// are the shared-memory address of the next state's row (rows of 257 words:
+// 256 bytes, then the state's accept; an odd row length spreads the states'
+// rows over the banks), so a byte is one dependent shared load.  Larger
+// automata walk the packed table (class, then entry), staged in shared
+// memory or read from device memory by the wrapper's occupancy rule.
 //
 // dpq_dfa_stream (the page walk).  One thread per lane (a page or a split
 // segment) over the resident [chunks, n, 16] u8 stream of K1
-// (stream_matcher.chunk_stream): a thread reads 16 bytes of its lane in one
-// load and loads chunk i + 1 before it walks chunk i.  The value-boundary
-// control is K1's (stream_matcher.cu.in): the length prefix accumulates
-// through uint32_t (its last byte reaches bit 31), then counts down; a
-// zero-length value adds accept[0]; the state resets to 0 when a prefix ends
-// and holds during prefix bytes; the lane stops at its first inactive byte
-// (b >= plen or all nn values seen).  hits[lane], seen[lane] int32.
-// What bounds it: operations and load latency, not bytes.  Each byte is a
-// dependent chain of two loads (class, then entry) and K1's control, while
-// the stream is read once.  So the table is staged in shared memory
-// (dynamic shared memory, above 48 KB after cudaFuncSetAttribute) while the
-// staged kernel keeps more than half the resident blocks of the
-// device-memory one (every block copies the whole table), and read through
-// __ldg from device memory otherwise, where the L1 and the 50 MB L2 hold it.
-// Lanes arrive sorted by length, so a warp's lanes stop together.
+// (stream_matcher.chunk_stream); hits[lane], seen[lane] int32.  The value
+// boundaries are K1's: a 4-byte little-endian length prefix (through
+// uint32_t: its last byte reaches bit 31), then the value's bytes; the state
+// resets at each value, a zero-length value adds accept[0], a value cut by
+// min(plen, steps) adds nothing, and the lane stops once nn values are seen.
+// What bounds it: the stream's bytes, read once; what sets its pace is the
+// table's loads, one a byte on a dependent chain, a lane a thread, and the
+// control between them.  So:
+//  * the boundary control is off the byte path: a thread walks each 16-byte
+//    chunk of its lane once, fully unrolled, each byte at a constant
+//    position and predicated on masks of the bytes that lie in the value
+//    going on from the chunk before (A) and in the one starting in this
+//    chunk (B), two independent chains of loads; a boundary (accept, count,
+//    the next prefix, which may straddle two chunks, reset) runs once a
+//    value, and the walk skips a value that cannot end inside the lane (a
+//    chunk in which B ends too is walked again for the value after it);
+//  * a thread holds chunks i to i + 2 in registers (a prefix straddles into
+//    i + 1) and loads chunk i + 3 when it moves on, from the L2, which it
+//    asked for that chunk three chunks before;
+//  * the grid is one block an SM (the wrapper passes the blocks the SMs
+//    hold), each block a contiguous run of the length-sorted lanes in whole
+//    warps, so the table is staged once an SM and a warp's lanes stop
+//    together; past 1,024 lanes a block, its threads take every
+//    (grid x block)-th lane.
+// The one-thread-a-lane kernel this replaced (dfa_stream_bytewise_kernel:
+// 64-thread blocks, each byte's transition and K1's boundary control in a
+// byte loop) stays as the yardstick chip_smoke.py and
+// utils/probe_stream_walk.py time the new walk against; no route runs it.
 //
 // dpq_dfa_values (the per-value walk).  chars [L, P] u8, one row per value,
 // zero-padded; for j < min(len, P): state = T[state, chars[j]]; out =
@@ -48,13 +67,8 @@
 //    to the pitch (16-, 8-, 4- or 1-byte loads, the largest that divides
 //    the pitch and the address of chars): reading a row's last sector past
 //    its length costs less than the requests cut at the length would;
-//  * up to 64 states, the block folds the class map into a byte-indexed
-//    table whose entries are the shared-memory address of the next state's
-//    row (rows of 257 words: 256 bytes, then the state's accept; an odd row
-//    length spreads the states' rows over the banks), so a byte is one
-//    dependent shared load: byte extract, address (one add), load, and the
-//    length test.  Larger automata walk the packed table (class, then
-//    entry), in shared memory or in device memory as for the page walk.
+//  * with the folded table a byte is byte extract, address (one add), the
+//    dependent shared load and the length test.
 // A tile ring in shared memory, filled by cp.async (32 rows a warp), was
 // measured and lost: its copies share the shared-memory pipe that the table
 // loads already hold.  The wrapper picks where the table sits by the same
@@ -114,10 +128,12 @@ template <bool LDG>
 static inline uint32_t dpq_entry(const uint16_t* t, int32_t i) { return t[i]; }
 #endif
 
-// One lane of the page walk.  pay: the [chunks, n, 16] stream, chunks * 16
-// >= steps; cls / tab: the packed table's class map and entries.
+// One lane of the bytewise page walk (the yardstick): each byte's
+// transition and boundary control in a byte loop.  pay: the [chunks, n, 16]
+// stream, chunks * 16 >= steps; cls / tab: the packed table's class map and
+// entries.
 template <bool LDG>
-__device__ __forceinline__ void dpq_dfa_lane(
+__device__ __forceinline__ void dpq_bytewise_lane(
     const uint8_t* __restrict__ pay, long long n, long long lane,
     int32_t steps, int32_t pl, int32_t nv,
     const uint8_t* __restrict__ cls, const uint16_t* __restrict__ tab,
@@ -359,12 +375,210 @@ __device__ __forceinline__ void dpq_walk_window(
                                     n_classes);
 }
 
+// ── the page walk's pieces, shared by the kernel and the host build ──
+
+#define DPQ_PREFETCH 3  // chunks a lane asks the L2 for ahead of its loads
+
+// Byte J of a 16-byte chunk (J a constant), zero-extended: one byte
+// permute of the word that holds it.
+template <int J>
+__device__ __forceinline__ uint32_t dpq_page_byte(const dpq_chunk& q)
+{
+    const uint64_t h = J < 8 ? q.lo : q.hi;
+    const uint32_t w = (J & 4) ? (uint32_t)(h >> 32) : (uint32_t)h;
+#ifdef __CUDACC__
+    return __byte_perm(w, 0, 0x4440 + (J & 3));
+#else
+    return (w >> (8 * (J & 3))) & 0xffu;
+#endif
+}
+
+// Asks the L2 for the 16 bytes at p (a no-op on the host).
+__device__ __forceinline__ void dpq_prefetch(const uint8_t* p)
+{
+#ifdef __CUDACC__
+    asm volatile("prefetch.global.L2 [%0];" : : "l"(p));
+#else
+    (void)p;
+#endif
+}
+
+// The 4-byte little-endian length prefix at byte k (0 to 16) of the 32
+// bytes cur, then nxt.
+__device__ __forceinline__ uint32_t dpq_prefix(const dpq_chunk& cur,
+                                               const dpq_chunk& nxt,
+                                               int32_t k)
+{
+    const uint64_t a = k < 8 ? cur.lo : k < 16 ? cur.hi : nxt.lo;
+    const uint64_t b = k < 8 ? cur.hi : k < 16 ? nxt.lo : nxt.hi;
+    const int32_t s = 8 * (k & 7);
+    return (uint32_t)(s ? (a >> s) | (b << (64 - s)) : a);
+}
+
+// The folded walk's step for byte J of a chunk, taken where bit J of `mask`
+// is set: st = the word at st + 4 * b (a volatile load with a memory
+// clobber: it reads the table the block staged).
+#ifdef __CUDACC__
+template <int J>
+__device__ __forceinline__ void dpq_fold_step_masked(uint32_t& st, uint32_t b,
+                                                     uint32_t mask,
+                                                     const uint8_t*)
+{
+    asm volatile("{\n\t.reg .pred p;\n\t.reg .b32 t;\n\t"
+                 "and.b32 t, %2, %3;\n\tsetp.ne.b32 p, t, 0;\n\t"
+                 "@p ld.shared.u32 %0, [%1];\n\t}"
+                 : "+r"(st) : "r"(st + 4 * b), "r"(mask), "n"(1 << J)
+                 : "memory");
+}
+#else
+template <int J>
+static inline void dpq_fold_step_masked(uint32_t& st, uint32_t b,
+                                        uint32_t mask, const uint8_t* fold)
+{
+    if (mask >> J & 1) memcpy(&st, fold + st + 4 * b, 4);
+}
+#endif
+
+// The bytes of a value [vs, ve) in the chunk at c0, as a mask.
+__device__ __forceinline__ uint32_t dpq_value_mask(int32_t vs, int32_t ve,
+                                                   int32_t c0)
+{
+    const int32_t lo = vs - c0 < 0 ? 0 : vs - c0 < 16 ? vs - c0 : 16;
+    const int32_t hi = ve - c0 < 16 ? ve - c0 : 16;
+    return (1u << hi) - (1u << lo);
+}
+
+// The next chunk of a lane: cur, nxt and ahead move on by one, the chunk
+// after them is loaded and the L2 asked for the one DPQ_PREFETCH further.
+__device__ __forceinline__ void dpq_advance(
+    int32_t& c0, dpq_chunk& cur, dpq_chunk& nxt, dpq_chunk& ahead,
+    const uint8_t* p, long long pitch, int32_t n_chunks)
+{
+    c0 += 16;
+    cur = nxt;
+    nxt = ahead;
+    const int32_t next = (c0 >> 4) + 2;
+    if (next < n_chunks) ahead = dpq_load_chunk(p + next * pitch);
+    if (next + DPQ_PREFETCH < n_chunks)
+        dpq_prefetch(p + (next + DPQ_PREFETCH) * pitch);
+}
+
+// Bytes J to 15 of chunk q for two values at once, each byte at a constant
+// position: value A's where bit J of ma is set, value B's where bit J of mb
+// is (two independent chains of loads, so the chunk in which one value ends
+// and the next starts is walked once).
+template <int J, int MODE>
+__device__ __forceinline__ void dpq_page_step(
+    const dpq_chunk& q, uint32_t ma, uint32_t mb, uint32_t& sa, uint32_t& aa,
+    uint32_t& sb, uint32_t& ab, const uint8_t* __restrict__ table,
+    int32_t n_classes)
+{
+    const uint32_t b = dpq_page_byte<J>(q);
+    if constexpr (MODE == DPQ_FOLDED) {
+        dpq_fold_step_masked<J>(sa, b, ma, table);
+        dpq_fold_step_masked<J>(sb, b, mb, table);
+    } else {
+        if (ma >> J & 1)
+            dpq_packed_step<MODE == DPQ_PACKED_GLOBAL>(b, sa, aa, table,
+                                                       n_classes);
+        if (mb >> J & 1)
+            dpq_packed_step<MODE == DPQ_PACKED_GLOBAL>(b, sb, ab, table,
+                                                       n_classes);
+    }
+    if constexpr (J < 15)
+        dpq_page_step<J + 1, MODE>(q, ma, mb, sa, aa, sb, ab, table,
+                                    n_classes);
+}
+
+// One lane of the page walk.  pay: the [chunks, n, 16] stream, chunks * 16
+// >= steps; table: the folded table, whose rows start at `start` (on the
+// card a shared-memory address, on the host 0), or the packed one.
+template <int MODE>
+__device__ __forceinline__ void dpq_page_lane(
+    const uint8_t* __restrict__ pay, long long n, long long lane,
+    int32_t steps, int32_t pl, int32_t nv, const uint8_t* __restrict__ table,
+    uint32_t start, int32_t n_classes, int32_t accept0,
+    int32_t* __restrict__ hits, int32_t* __restrict__ seen)
+{
+    const int32_t lim = pl < steps ? pl : steps;
+    const int32_t n_chunks = (lim + 15) >> 4;
+    int32_t h = 0, done = 0;
+    if (nv > 0 && lim >= 4) {
+        const uint8_t* p = pay + 16 * lane;
+        const long long pitch = 16 * n;
+        // chunks i, i + 1 and i + 2 in registers (a copy out of a register
+        // that a load has not filled yet stalls, so a chunk is loaded two
+        // chunks before it is walked, from the L2, which was asked for it
+        // DPQ_PREFETCH chunks before that)
+        dpq_chunk cur = dpq_load_chunk(p), nxt = {0, 0}, ahead = {0, 0};
+        if (n_chunks > 1) nxt = dpq_load_chunk(p + pitch);
+        if (n_chunks > 2) ahead = dpq_load_chunk(p + 2 * pitch);
+        for (int32_t k = 3; k < 3 + DPQ_PREFETCH && k < n_chunks; ++k)
+            dpq_prefetch(p + k * pitch);
+        int32_t c0 = 0;  // the lane's byte at cur's byte 0
+        uint32_t len = dpq_prefix(cur, nxt, 0);
+        uint32_t st = start, acc = (uint32_t)accept0;
+        // a value is walked only where it ends inside the lane
+        bool live = len <= (uint32_t)(lim - 4);
+        int32_t vs = 4;  // the value's first byte
+        while (live) {
+            // A: the value [vs, ve); B: the next one, where A ends here
+            const int32_t ve = vs + (int32_t)len;
+            const bool ends = ve <= c0 + 16;
+            bool more = ends && done + 1 < nv && ve <= lim - 4;
+            const uint32_t len_b = more ? dpq_prefix(cur, nxt, ve - c0) : 0u;
+            const int32_t vs_b = ve + 4;
+            more = more && len_b <= (uint32_t)(lim - vs_b);
+            const int32_t ve_b = more ? vs_b + (int32_t)len_b : vs_b;
+            uint32_t st_b = start, acc_b = (uint32_t)accept0;
+            dpq_page_step<0, MODE>(cur, dpq_value_mask(vs, ve, c0),
+                                    more ? dpq_value_mask(vs_b, ve_b, c0) : 0u,
+                                    st, acc, st_b, acc_b, table, n_classes);
+            bool stay = false;  // a value after B starts in this chunk
+            // A's and B's accepts where they end here; B goes on as A
+            if (ends) {
+                h += (int32_t)dpq_value_accept<MODE>(st, acc, table);
+                ++done;
+                live = more;
+                if (more) {
+                    st = st_b;
+                    acc = acc_b;
+                    vs = vs_b;
+                    len = len_b;
+                    // B ends here too: the chunk is walked again for
+                    // the value after it
+                    if (ve_b <= c0 + 16) {
+                        h += (int32_t)dpq_value_accept<MODE>(st, acc, table);
+                        ++done;
+                        live = done < nv && ve_b <= lim - 4;
+                        if (live) {
+                            len = dpq_prefix(cur, nxt, ve_b - c0);
+                            vs = ve_b + 4;
+                            live = len <= (uint32_t)(lim - vs);
+                            st = start;
+                            acc = (uint32_t)accept0;
+                            stay = true;
+                        }
+                    }
+                }
+            }
+            if (live && !stay)
+                dpq_advance(c0, cur, nxt, ahead, p, pitch, n_chunks);
+        }
+    }
+    hits[lane] = h;
+    seen[lane] = done;
+}
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kStreamThreads = 64;   // lanes a block: spread over the SMs
+// The page walk's block: at most 1,024 lanes, one block an SM (registers
+// capped at 64).
+constexpr int kPageThreads = 1024;
+constexpr int kBytewiseThreads = 64;  // the yardstick's 64-lane blocks
 constexpr int kRowwiseThreads = 128;
 // The per-value walk's block: registers capped at 64 (two blocks an SM),
 // so an SM holds 1,024 threads and 64 KB of windows on their way.
@@ -384,8 +598,64 @@ __device__ __forceinline__ void stage(uint8_t* smem,
     __syncthreads();
 }
 
+// Folds the packed table into shared memory, the block's threads together:
+// thread b builds column b; its entries are the shared-memory addresses of
+// the next rows, and word 256 of a row its state's accept.
+__device__ __forceinline__ void fold(uint8_t* smem,
+                                    const uint8_t* __restrict__ packed,
+                                    int32_t n_states, int32_t n_classes,
+                                    int32_t accept0)
+{
+    uint32_t* rows = (uint32_t*)smem;
+    const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
+    for (int32_t s = threadIdx.x; s < n_states; s += blockDim.x)
+        rows[s * DPQ_FOLD_ROW + 256] = s == 0 ? (uint32_t)accept0 : 0;
+    __syncthreads();
+    for (int32_t b = threadIdx.x; b < 256; b += blockDim.x) {
+        const uint16_t* tab = (const uint16_t*)(packed + 256)
+                              + __ldg(packed + b);
+#pragma unroll 8
+        for (int32_t s = 0; s < n_states; ++s) {
+            const uint32_t e = __ldg(tab + s * n_classes);
+            uint32_t next;
+            rows[s * DPQ_FOLD_ROW + b] = dpq_fold_entry(e, base, &next);
+            if (e >> 15) rows[next * DPQ_FOLD_ROW + 256] = 1;  // accepts
+        }
+    }
+    __syncthreads();
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kPageThreads, 1) dfa_stream_kernel(
+    const uint8_t* __restrict__ pay, long long n, int32_t steps,
+    const int32_t* __restrict__ plen, const int32_t* __restrict__ nn,
+    const uint8_t* __restrict__ packed, int32_t words, int32_t n_states,
+    int32_t n_classes, int32_t accept0, int32_t* __restrict__ hits,
+    int32_t* __restrict__ seen)
+{
+    extern __shared__ __align__(16) uint8_t smem[];
+    const uint8_t* table = packed;
+    if constexpr (MODE == DPQ_FOLDED) {
+        fold(smem, packed, n_states, n_classes, accept0);
+        table = smem;
+    } else if constexpr (MODE == DPQ_PACKED_SHARED) {
+        stage(smem, packed, words);
+        table = smem;
+    }
+    const uint32_t start = MODE == DPQ_FOLDED
+        ? (uint32_t)__cvta_generic_to_shared(smem) : 0;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         lane < n; lane += stride)
+        dpq_page_lane<MODE>(pay, n, lane, steps, plen[lane], nn[lane], table,
+                            start, n_classes, accept0, hits, seen);
+}
+
+// The page walk that dfa_stream_kernel replaced: one thread a lane in
+// blocks of 64, the packed table staged in each block (SHARED) or read from
+// device memory.  No route runs it: it stays as the yardstick.
 template <bool SHARED>
-__global__ void __launch_bounds__(kStreamThreads) dfa_stream_kernel(
+__global__ void __launch_bounds__(kBytewiseThreads) dfa_stream_bytewise_kernel(
     const uint8_t* __restrict__ pay, long long n, int32_t steps,
     const int32_t* __restrict__ plen, const int32_t* __restrict__ nn,
     const uint8_t* __restrict__ packed, int32_t words, int32_t n_classes,
@@ -399,9 +669,9 @@ __global__ void __launch_bounds__(kStreamThreads) dfa_stream_kernel(
     }
     const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
-    dpq_dfa_lane<!SHARED>(pay, n, lane, steps, plen[lane], nn[lane], table,
-                          (const uint16_t*)(table + 256), n_classes, accept0,
-                          hits, seen);
+    dpq_bytewise_lane<!SHARED>(pay, n, lane, steps, plen[lane], nn[lane],
+                               table, (const uint16_t*)(table + 256),
+                               n_classes, accept0, hits, seen);
 }
 
 // ── the per-value walk ──
@@ -426,25 +696,7 @@ dfa_values_kernel(
 
     const uint8_t* table = packed;
     if constexpr (MODE == DPQ_FOLDED) {
-        // the block folds the class map in once: thread b builds column b;
-        // its entries are the shared-memory addresses of the next rows
-        uint32_t* fold = (uint32_t*)smem;
-        const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
-        for (int32_t s = threadIdx.x; s < n_states; s += blockDim.x)
-            fold[s * DPQ_FOLD_ROW + 256] = s == 0 ? (uint32_t)accept0 : 0;
-        __syncthreads();
-        for (int32_t b = threadIdx.x; b < 256; b += blockDim.x) {
-            const uint16_t* tab = (const uint16_t*)(packed + 256)
-                                  + __ldg(packed + b);
-#pragma unroll 8
-            for (int32_t s = 0; s < n_states; ++s) {
-                const uint32_t e = __ldg(tab + s * n_classes);
-                uint32_t next;
-                fold[s * DPQ_FOLD_ROW + b] = dpq_fold_entry(e, base, &next);
-                if (e >> 15) fold[next * DPQ_FOLD_ROW + 256] = 1;  // accepts
-            }
-        }
-        __syncthreads();
+        fold(smem, packed, n_states, n_classes, accept0);
         table = smem;
     } else if constexpr (MODE == DPQ_PACKED_SHARED) {
         stage(smem, packed, words);
@@ -613,21 +865,52 @@ cudaError_t launch_values_mode(const uint8_t* chars, long long count,
     }
 }
 
+template <int MODE>
+cudaError_t launch_stream(const uint8_t* pay, long long n, int steps,
+                          const int32_t* plen, const int32_t* nn,
+                          const uint8_t* packed, int packed_bytes,
+                          int n_states, int n_classes, int accept0, int grid,
+                          int32_t* hits, int32_t* seen, cudaStream_t s)
+{
+    const int bytes = MODE == DPQ_FOLDED ? dpq_fold_bytes(n_states)
+                      : MODE == DPQ_PACKED_SHARED ? packed_bytes : 0;
+    const cudaError_t rc = shared_bytes(dfa_stream_kernel<MODE>, bytes);
+    if (rc != cudaSuccess) return rc;
+    if (grid < 1) return cudaErrorInvalidValue;
+    // a block: a contiguous run of ceil(n / grid) lanes, in whole warps
+    const long long run = (n + grid - 1) / grid;
+    const int threads = (int)(run > kPageThreads ? kPageThreads
+                              : (run + 31) / 32 * 32);
+    const long long need = (n + threads - 1) / threads;
+    const unsigned blocks = (unsigned)(need < grid ? need : grid);
+    dfa_stream_kernel<MODE><<<blocks, threads, bytes, s>>>(
+        pay, n, steps, plen, nn, packed, packed_bytes / 16, n_states,
+        n_classes, accept0, hits, seen);
+    return cudaSuccess;
+}
+
 }  // namespace
 
 // Blocks one SM of the current device holds at once.  walk 0: the page
-// walk; 1: the per-value walk with the folded table; 2: the per-value walk
-// with the packed table.  `staged_bytes`: the table's bytes in shared
-// memory, or 0 for the variant that reads it from device memory.  The
-// wrapper stages a table only where the staged variant keeps more than
-// half the device-memory variant's blocks, and launches the per-value walk
-// with as many blocks as the SMs hold.
+// walk with the packed table; 3: the page walk with the folded table (both
+// at 1,024 threads a block); 1: the per-value walk with the folded table;
+// 2: the per-value walk with the packed table.  `staged_bytes`: the
+// table's bytes in shared memory, or 0 for the variant that reads it from
+// device memory.  The wrapper stages a table only where the staged variant
+// keeps more than half the device-memory variant's blocks, and launches
+// each walk with as many blocks as the SMs hold.
 extern "C" int dpq_dfa_blocks_per_sm(int walk, int staged_bytes)
 {
-    if (walk == 0)
-        return staged_bytes
-            ? blocks_per_sm(dfa_stream_kernel<true>, kStreamThreads, staged_bytes)
-            : blocks_per_sm(dfa_stream_kernel<false>, kStreamThreads, 0);
+    if (walk == 0 || walk == 3) {
+        if (staged_bytes == 0)
+            return blocks_per_sm(dfa_stream_kernel<DPQ_PACKED_GLOBAL>,
+                                 kPageThreads, 0);
+        return walk == 3
+            ? blocks_per_sm(dfa_stream_kernel<DPQ_FOLDED>, kPageThreads,
+                            staged_bytes)
+            : blocks_per_sm(dfa_stream_kernel<DPQ_PACKED_SHARED>,
+                            kPageThreads, staged_bytes);
+    }
     if (staged_bytes == 0)
         return blocks_per_sm(dfa_values_kernel<DPQ_PACKED_GLOBAL, 16>,
                              kValueThreads, 0);
@@ -639,27 +922,69 @@ extern "C" int dpq_dfa_blocks_per_sm(int walk, int staged_bytes)
 }
 
 // pay: [chunks, n, 16] u8; plen, nn, hits, seen: [n] int32; packed: the
-// packed table, `packed_bytes` a multiple of 16.  n >= 1.
+// packed table of `n_states` states, `packed_bytes` a multiple of 16; mode:
+// DPQ_FOLDED (needs n_states <= DPQ_FOLD_MAX_STATES), DPQ_PACKED_SHARED or
+// DPQ_PACKED_GLOBAL; grid: the blocks to launch at most (those the SMs hold
+// at once).  n >= 1.
 extern "C" int dpq_dfa_stream(
+    const void* pay, long long n, int steps, const void* plen, const void* nn,
+    const void* packed, int packed_bytes, int n_states, int n_classes,
+    int accept0, int mode, int grid, void* hits, void* seen, void* stream)
+{
+    const uint8_t* y = (const uint8_t*)pay;
+    const int32_t* l = (const int32_t*)plen;
+    const int32_t* v = (const int32_t*)nn;
+    const uint8_t* t = (const uint8_t*)packed;
+    int32_t* h = (int32_t*)hits;
+    int32_t* c = (int32_t*)seen;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t rc = cudaErrorInvalidValue;
+    if (mode == DPQ_FOLDED && n_states <= DPQ_FOLD_MAX_STATES)
+        rc = launch_stream<DPQ_FOLDED>(y, n, steps, l, v, t, packed_bytes,
+                                       n_states, n_classes, accept0, grid, h,
+                                       c, s);
+    else if (mode == DPQ_PACKED_SHARED)
+        rc = launch_stream<DPQ_PACKED_SHARED>(y, n, steps, l, v, t,
+                                              packed_bytes, n_states,
+                                              n_classes, accept0, grid, h, c,
+                                              s);
+    else if (mode == DPQ_PACKED_GLOBAL)
+        rc = launch_stream<DPQ_PACKED_GLOBAL>(y, n, steps, l, v, t,
+                                              packed_bytes, n_states,
+                                              n_classes, accept0, grid, h, c,
+                                              s);
+    if (rc != cudaSuccess) {
+        cudaGetLastError();  // clear it: it is reported here
+        return (int)rc;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The bytewise yardstick (dfa_stream_bytewise_kernel), as it was launched:
+// 64 lanes a block, the packed table staged when `use_shared`.
+extern "C" int dpq_dfa_stream_bytewise(
     const void* pay, long long n, int steps, const void* plen, const void* nn,
     const void* packed, int packed_bytes, int n_classes, int accept0,
     int use_shared, void* hits, void* seen, void* stream)
 {
-    const unsigned blocks = (unsigned)((n + kStreamThreads - 1) / kStreamThreads);
+    const unsigned blocks =
+        (unsigned)((n + kBytewiseThreads - 1) / kBytewiseThreads);
     const int words = packed_bytes / 16;
     cudaStream_t s = (cudaStream_t)stream;
     if (use_shared) {
-        const cudaError_t rc = shared_bytes(dfa_stream_kernel<true>, packed_bytes);
+        const cudaError_t rc = shared_bytes(dfa_stream_bytewise_kernel<true>,
+                                            packed_bytes);
         if (rc != cudaSuccess) {
             cudaGetLastError();  // clear it: it is reported here
             return (int)rc;
         }
-        dfa_stream_kernel<true><<<blocks, kStreamThreads, packed_bytes, s>>>(
-            (const uint8_t*)pay, n, steps, (const int32_t*)plen,
-            (const int32_t*)nn, (const uint8_t*)packed, words, n_classes,
-            accept0, (int32_t*)hits, (int32_t*)seen);
+        dfa_stream_bytewise_kernel<true>
+            <<<blocks, kBytewiseThreads, packed_bytes, s>>>(
+                (const uint8_t*)pay, n, steps, (const int32_t*)plen,
+                (const int32_t*)nn, (const uint8_t*)packed, words, n_classes,
+                accept0, (int32_t*)hits, (int32_t*)seen);
     } else {
-        dfa_stream_kernel<false><<<blocks, kStreamThreads, 0, s>>>(
+        dfa_stream_bytewise_kernel<false><<<blocks, kBytewiseThreads, 0, s>>>(
             (const uint8_t*)pay, n, steps, (const int32_t*)plen,
             (const int32_t*)nn, (const uint8_t*)packed, words, n_classes,
             accept0, (int32_t*)hits, (int32_t*)seen);
@@ -738,15 +1063,58 @@ extern "C" int dpq_dfa_values_rowwise(
 #else
 // The same walks on the host, over the same layouts (the CPU tests build
 // this file with g++).
+
+// The folded table of `packed` (as a block of the kernels folds it, with
+// offsets from its start for addresses), malloc'ed.
+static uint32_t* dpq_fold_host(const uint8_t* packed, int32_t n_states,
+                               int32_t n_classes, int32_t accept0)
+{
+    uint32_t* fold = (uint32_t*)malloc((size_t)dpq_fold_bytes(n_states));
+    for (int32_t s = 0; s < n_states; ++s)
+        fold[s * DPQ_FOLD_ROW + 256] = s == 0 ? (uint32_t)accept0 : 0;
+    const uint16_t* tab = (const uint16_t*)(packed + 256);
+    for (int32_t b = 0; b < 256; ++b)
+        for (int32_t s = 0; s < n_states; ++s) {
+            const uint32_t e = tab[s * n_classes + packed[b]];
+            uint32_t next;
+            fold[s * DPQ_FOLD_ROW + b] = dpq_fold_entry(e, 0, &next);
+            if (e >> 15) fold[next * DPQ_FOLD_ROW + 256] = 1;
+        }
+    return fold;
+}
+
+// mode: DPQ_FOLDED (up to DPQ_FOLD_MAX_STATES states) or either packed
+// mode, as the kernel walks it.
 extern "C" void dpq_dfa_stream_host(
+    const uint8_t* pay, long long n, int steps, const int32_t* plen,
+    const int32_t* nn, const uint8_t* packed, int n_states, int n_classes,
+    int accept0, int mode, int32_t* hits, int32_t* seen)
+{
+    if (mode != DPQ_FOLDED || n_states > DPQ_FOLD_MAX_STATES) {
+        for (long long lane = 0; lane < n; ++lane)
+            dpq_page_lane<DPQ_PACKED_SHARED>(pay, n, lane, steps, plen[lane],
+                                             nn[lane], packed, 0, n_classes,
+                                             accept0, hits, seen);
+        return;
+    }
+    uint32_t* fold = dpq_fold_host(packed, n_states, n_classes, accept0);
+    for (long long lane = 0; lane < n; ++lane)
+        dpq_page_lane<DPQ_FOLDED>(pay, n, lane, steps, plen[lane], nn[lane],
+                                  (const uint8_t*)fold, 0, n_classes, accept0,
+                                  hits, seen);
+    free(fold);
+}
+
+// The bytewise yardstick's lane walk.
+extern "C" void dpq_dfa_stream_bytewise_host(
     const uint8_t* pay, long long n, int steps, const int32_t* plen,
     const int32_t* nn, const uint8_t* packed, int n_classes, int accept0,
     int32_t* hits, int32_t* seen)
 {
     for (long long lane = 0; lane < n; ++lane)
-        dpq_dfa_lane<false>(pay, n, lane, steps, plen[lane], nn[lane], packed,
-                            (const uint16_t*)(packed + 256), n_classes,
-                            accept0, hits, seen);
+        dpq_bytewise_lane<false>(pay, n, lane, steps, plen[lane], nn[lane],
+                                 packed, (const uint16_t*)(packed + 256),
+                                 n_classes, accept0, hits, seen);
 }
 
 template <int MODE, int PIECE>
@@ -805,17 +1173,7 @@ extern "C" void dpq_dfa_values_host(
                                                 out);
         return;
     }
-    uint32_t* fold = (uint32_t*)malloc((size_t)dpq_fold_bytes(n_states));
-    for (int32_t s = 0; s < n_states; ++s)
-        fold[s * DPQ_FOLD_ROW + 256] = s == 0 ? (uint32_t)accept0 : 0;
-    const uint16_t* tab = (const uint16_t*)(packed + 256);
-    for (int32_t b = 0; b < 256; ++b)
-        for (int32_t s = 0; s < n_states; ++s) {
-            const uint32_t e = tab[s * n_classes + packed[b]];
-            uint32_t next;
-            fold[s * DPQ_FOLD_ROW + b] = dpq_fold_entry(e, 0, &next);
-            if (e >> 15) fold[next * DPQ_FOLD_ROW + 256] = 1;
-        }
+    uint32_t* fold = dpq_fold_host(packed, n_states, n_classes, accept0);
     dpq_values_host_mode<DPQ_FOLDED>(chars, count, pitch, lens,
                                      (const uint8_t*)fold, n_classes, accept0,
                                      out);

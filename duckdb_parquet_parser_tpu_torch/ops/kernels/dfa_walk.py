@@ -15,20 +15,25 @@ a Python loop of PyTorch ops (about 40 launches a byte step).
 * `value_walk` — the per-value walk over a [L, P] u8 pad_strings matrix;
   [L] bool accepts, what `ops/scan.dfa_match` returns.
 
-What bounds them on the H100 (see `csrc/dfa_walk.cu`): the page walk, its
-operations and load latency; the per-value walk, the bytes of its rows,
-which each thread of a persistent grid loads into registers a 64-byte
-window ahead of the one it walks.  The transition table is data
+What bounds them on the H100 (see `csrc/dfa_walk.cu`): the bytes they read
+and the table's loads, one a byte on a dependent chain.  The page walk
+walks each 16-byte chunk of a lane unrolled, predicated on the bytes that
+lie in the value, and handles a value boundary once a value; the per-value
+walk loads a 64-byte window of a row ahead of the one it walks.  Both run
+one grid of the blocks the SMs hold.  The transition table is data
 (`pack_table`: a byte -> class map and a [S, C] uint16 table whose entries
 carry the next state and its accept bit), so one `nvcc` run serves every
 pattern and a new pattern's first query builds nothing.  A launch stages
 the table in shared memory while that keeps the kernel more than half its
-resident blocks (`stages`) and reads it from device memory otherwise; the
-per-value walk folds a staged table of up to `FOLD_MAX_STATES` states into
-a byte-indexed one (one load a byte).  The variants are one walk.
+resident blocks (`stages`) and reads it from device memory otherwise; a
+staged table of up to `FOLD_MAX_STATES` states is folded into a
+byte-indexed one (one load a byte; `table_mode`).  The variants are one
+walk.
 
 CPU tensors take the plain versions (`stream_walk_plain`, `value_walk_plain`);
 CUDA tensors launch the kernel or raise.  Both entries share `launches`.
+The kernels they replaced stay as yardsticks (`stream_walk_bytewise`,
+`value_walk_rowwise`): no route calls them.
 """
 
 from __future__ import annotations
@@ -49,12 +54,12 @@ from .stream_matcher import CHUNK, unchunk_stream
 launches = 0  # kernel launches of either entry (one per call on the card)
 
 MAX_STATES = 1 << 15  # an entry holds the next state in 15 bits
-# The per-value walk's folded table (csrc/dfa_walk.cu): a row of 257 words
-# a state (the next rows' addresses for the 256 bytes, and the accept), at
-# most 64 states (65,792 bytes).
+# The folded table (csrc/dfa_walk.cu): a row of 257 words a state (the next
+# rows' addresses for the 256 bytes, and the accept), at most 64 states
+# (65,792 bytes).
 FOLD_ROW_BYTES = 1028
 FOLD_MAX_STATES = 64
-# the per-value walk's table modes, as csrc/dfa_walk.cu numbers them
+# the walks' table modes, as csrc/dfa_walk.cu numbers them
 FOLDED, PACKED_SHARED, PACKED_GLOBAL = 0, 1, 2
 MODE_NAMES = {FOLDED: "folded table in shared memory",
               PACKED_SHARED: "packed table in shared memory",
@@ -68,8 +73,11 @@ def _lib():
     lib = build.load_source(build.read_csrc("dfa_walk.cu"))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.dpq_dfa_stream.argtypes = [vp, ctypes.c_longlong, i, vp, vp, vp, i, i,
-                                   i, i, vp, vp, vp]
+                                   i, i, i, i, vp, vp, vp]
     lib.dpq_dfa_stream.restype = i
+    lib.dpq_dfa_stream_bytewise.argtypes = [vp, ctypes.c_longlong, i, vp, vp,
+                                            vp, i, i, i, i, vp, vp, vp]
+    lib.dpq_dfa_stream_bytewise.restype = i
     lib.dpq_dfa_values.argtypes = [vp, ctypes.c_longlong, i, vp, vp, i, i, i,
                                    i, i, i, vp, vp]
     lib.dpq_dfa_values.restype = i
@@ -86,13 +94,21 @@ def prepare() -> None:
     _lib()
 
 
+def walk_code(values: bool, folded: bool) -> int:
+    """csrc/dfa_walk.cu's number of a walk and its staged table: the page
+    walk with the packed (0) or folded (3) table, the per-value walk with
+    the folded (1) or packed (2) one."""
+    if values:
+        return 1 if folded else 2
+    return 3 if folded else 0
+
+
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(device_index: int, walk: int, staged_bytes: int) -> int:
     """Blocks one SM of CUDA device `device_index` (the current device)
-    holds at once: of the page walk (`walk` 0) or of the per-value walk
-    with the folded (1) or the packed (2) table, `staged_bytes` of it in
-    shared memory (0: the variant that reads the table from device
-    memory)."""
+    holds at once of the walk numbered `walk` (`walk_code`), `staged_bytes`
+    of its table in shared memory (0: the variant that reads the packed
+    table from device memory)."""
     return _lib().dpq_dfa_blocks_per_sm(walk, staged_bytes)
 
 
@@ -101,31 +117,48 @@ def stages(device_index: int, values: bool, table_bytes: int,
            folded: bool = False) -> bool:
     """Whether a launch on CUDA device `device_index` (the current device)
     stages a table of `table_bytes` in shared memory: where the staged
-    variant of the walk (`values`: the per-value walk, whose staged table
-    is `folded` or packed; else the page walk) keeps more than half the
-    blocks an SM that the device-memory variant holds.  Every block copies
-    the whole table, and a table that costs more blocks leaves too few
-    warps to hide the walk's latency (`utils/probe_dfa_walk.py`; PERF.md,
-    K3)."""
-    walk = (1 if folded else 2) if values else 0
+    variant of the walk (`values`: the per-value walk, else the page walk;
+    its staged table `folded` or packed) keeps more than half the blocks an
+    SM that the device-memory variant holds.  Every block copies the whole
+    table, and a table that costs more blocks leaves too few warps to hide
+    the walk's latency (`utils/probe_dfa_walk.py`; PERF.md, K3).  The page
+    walk's block of up to 1,024 threads holds an SM alone in either
+    variant, so it stages every table that fits."""
+    walk = walk_code(values, folded)
     return (2 * blocks_per_sm(device_index, walk, table_bytes)
             > blocks_per_sm(device_index, walk, 0))
 
 
-def value_mode(packed: "PackedTable", device_index: int,
+def table_mode(packed: "PackedTable", device_index: int, values: bool,
                staged: bool | None = None) -> tuple[int, int]:
-    """(mode, bytes of the table in shared memory) of a per-value walk
-    under `packed` on CUDA device `device_index`: staged, the table is
-    folded where it has at most `FOLD_MAX_STATES` states and packed
-    otherwise; `staged` None stages it by `stages`."""
+    """(mode, bytes of the table in shared memory) of a walk (`values`: the
+    per-value walk, else the page walk) under `packed` on CUDA device
+    `device_index`: staged, the table is folded where it has at most
+    `FOLD_MAX_STATES` states and packed otherwise; `staged` None stages it
+    by `stages`."""
     folded = packed.n_states <= FOLD_MAX_STATES
     nbytes = (-(-FOLD_ROW_BYTES * packed.n_states // 16) * 16 if folded
               else len(packed.data))
     if staged is None:
-        staged = stages(device_index, True, nbytes, folded)
+        staged = stages(device_index, values, nbytes, folded)
     if not staged:
         return PACKED_GLOBAL, 0
     return (FOLDED if folded else PACKED_SHARED), nbytes
+
+
+def value_mode(packed: "PackedTable", device_index: int,
+               staged: bool | None = None) -> tuple[int, int]:
+    """`table_mode` of the per-value walk."""
+    return table_mode(packed, device_index, True, staged)
+
+
+@functools.lru_cache(maxsize=None)
+def grid(device_index: int, values: bool, mode: int, staged_bytes: int) -> int:
+    """The grid of a walk (`values`: the per-value walk, else the page
+    walk) in table mode `mode`: the blocks the device's SMs hold at once."""
+    return (torch.cuda.get_device_properties(device_index).multi_processor_count
+            * blocks_per_sm(device_index, walk_code(values, mode == FOLDED),
+                            staged_bytes))
 
 
 @dataclass(frozen=True)
@@ -201,18 +234,8 @@ def stream_walk_plain(payload_t, plen, nn, dfa, steps: int | None = None):
                                         dfa.accept, steps)
 
 
-def stream_walk(chunked: torch.Tensor, plen: torch.Tensor, nn: torch.Tensor,
-                dfa, steps: int | None = None, *, staged: bool | None = None):
-    """The table DFA of `dfa` over the byte stream `chunked` ([chunks, n,
-    16] u8, `stream_matcher.chunk_stream`'s layout), walking at most `steps`
-    bytes of each lane: the 4-byte length prefixes, then the value bytes;
-    at each value's end the lane adds its accept.  Returns (hits [n] int32,
-    seen [n] int32).  `staged` forces a variant (True: the table in shared
-    memory, False: in device memory); None picks one (`stages`).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
-    global launches
+def _check_stream(chunked, plen, nn, steps):
+    """(device, lanes, steps walked at most) of a page walk's arguments."""
     dev = chunked.device
     if (chunked.dtype != torch.uint8 or chunked.dim() != 3
             or chunked.shape[2] != CHUNK):
@@ -222,29 +245,74 @@ def stream_walk(chunked: torch.Tensor, plen: torch.Tensor, nn: torch.Tensor,
     steps = chunks * CHUNK if steps is None else min(int(steps),
                                                      chunks * CHUNK)
     if dev.type == "cpu":
-        return stream_walk_plain(unchunk_stream(chunked, steps), plen, nn,
-                                 dfa, steps)
+        return dev, n, steps
     _check_cuda(dev)
     if not chunked.is_contiguous():
         raise ValueError("the stream must be contiguous")
     _check_int32("plen", plen, dev, n)
     _check_int32("nn", nn, dev, n)
+    return dev, n, steps
+
+
+def stream_walk(chunked: torch.Tensor, plen: torch.Tensor, nn: torch.Tensor,
+                dfa, steps: int | None = None, *, staged: bool | None = None):
+    """The table DFA of `dfa` over the byte stream `chunked` ([chunks, n,
+    16] u8, `stream_matcher.chunk_stream`'s layout), walking at most `steps`
+    bytes of each lane: the 4-byte length prefixes, then the value bytes;
+    at each value's end the lane adds its accept.  Returns (hits [n] int32,
+    seen [n] int32).  `staged` forces a variant (True: the table in shared
+    memory, folded where `table_mode` folds it; False: the packed table in
+    device memory); None picks one (`stages`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    global launches
+    dev, n, steps = _check_stream(chunked, plen, nn, steps)
+    if dev.type == "cpu":
+        return stream_walk_plain(unchunk_stream(chunked, steps), plen, nn,
+                                 dfa, steps)
     hits = torch.empty((n,), dtype=torch.int32, device=dev)
     seen = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return hits, seen
     packed, table = _device_table(dfa, dev)
-    if staged is None:
-        staged = stages(dev.index, False, table.numel())
+    mode, nbytes = table_mode(packed, dev.index, False, staged)
     rc = _lib().dpq_dfa_stream(
         chunked.data_ptr(), n, steps, plen.data_ptr(), nn.data_ptr(),
-        table.data_ptr(), table.numel(), packed.n_classes, packed.accept0,
-        int(staged), hits.data_ptr(), seen.data_ptr(),
+        table.data_ptr(), table.numel(), packed.n_states, packed.n_classes,
+        packed.accept0, mode, grid(dev.index, False, mode, nbytes),
+        hits.data_ptr(), seen.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"table-DFA stream walk launch failed: cudaError "
                            f"{rc}")
     launches += 1
+    return hits, seen
+
+
+def stream_walk_bytewise(chunked: torch.Tensor, plen: torch.Tensor,
+                         nn: torch.Tensor, dfa, steps: int | None = None, *,
+                         staged: bool = True):
+    """The one-thread-a-lane byte loop that `stream_walk`'s kernel
+    replaced, on CUDA tensors only, the packed table staged in each 64-lane
+    block (`staged`) or read from device memory: the yardstick
+    `chip_smoke.py` and `utils/probe_stream_walk.py` time `stream_walk`
+    against.  No route calls it, and it counts no launch."""
+    dev, n, steps = _check_stream(chunked, plen, nn, steps)
+    _check_cuda(dev)
+    hits = torch.empty((n,), dtype=torch.int32, device=dev)
+    seen = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return hits, seen
+    packed, table = _device_table(dfa, dev)
+    rc = _lib().dpq_dfa_stream_bytewise(
+        chunked.data_ptr(), n, steps, plen.data_ptr(), nn.data_ptr(),
+        table.data_ptr(), table.numel(), packed.n_classes, packed.accept0,
+        int(staged), hits.data_ptr(), seen.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bytewise stream walk launch failed: cudaError "
+                           f"{rc}")
     return hits, seen
 
 
@@ -264,15 +332,6 @@ def value_walk_plain(chars: torch.Tensor, lens: torch.Tensor, dfa):
         nxt = tflat[(state * 256 + chars[:, j].to(torch.int32)).long()]
         state = torch.where(j < lens, nxt, state)
     return acc[state.long()]
-
-
-@functools.lru_cache(maxsize=None)
-def _value_grid(device_index: int, mode: int, staged_bytes: int) -> int:
-    """The persistent grid of a per-value walk: the blocks the device's
-    SMs hold at once."""
-    walk = 2 if mode == PACKED_SHARED else 1
-    return (torch.cuda.get_device_properties(device_index).multi_processor_count
-            * blocks_per_sm(device_index, walk, staged_bytes))
 
 
 def _check_values(chars: torch.Tensor, lens: torch.Tensor):
@@ -308,7 +367,7 @@ def value_walk(chars: torch.Tensor, lens: torch.Tensor, dfa, *,
     rc = _lib().dpq_dfa_values(
         chars.data_ptr(), count, pitch, lens.data_ptr(), table.data_ptr(),
         table.numel(), packed.n_states, packed.n_classes, packed.accept0,
-        mode, _value_grid(dev.index, mode, nbytes), out.data_ptr(),
+        mode, grid(dev.index, True, mode, nbytes), out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"table-DFA value walk launch failed: cudaError "

@@ -1,14 +1,14 @@
 """Probe of where the table-DFA walk keeps its table, on one GPU.
 
 Times both variants of kernel K3 (`ops/kernels/dfa_walk.py`): the table
-staged in shared memory, and the table read from device memory, at the
-main path's shapes (the page walk on the larger bucket of the resident
-2M-row `l_comment` column, the per-value walk on its `str_padded` matrix),
-under the tables of a real pattern and of random automata of 256 byte
-classes from 16 to 300 states, in alternating rounds, and prints the least
-time of each beside the blocks an SM holds and the variant the wrapper
-picks (`dfa_walk.stages`).  That rule was chosen from this probe's numbers
-(PERF.md, K3).
+staged in shared memory (folded up to 64 states), and the packed table read
+from device memory, at the main path's shapes (the page walk on the larger
+bucket of the resident 2M-row `l_comment` column, the per-value walk on its
+`str_padded` matrix), under the tables of a real pattern and of random
+automata of 256 byte classes from 16 to 300 states, in alternating rounds,
+and prints the least time of each beside the blocks an SM holds and the
+variant the wrapper picks (`dfa_walk.stages`). That rule was chosen from
+this probe's numbers (PERF.md, K3).
 
 Usage: CXX=g++ python3 -m duckdb_parquet_parser_tpu_torch.utils.probe_dfa_walk
 (needs one CUDA device; writes its fixture under build/fixtures/).
@@ -84,23 +84,27 @@ def main() -> int:
             chars, lens, d, staged=st)),
     }
     for label, (values, walk) in walks.items():
-        ldg_blocks = lib.dpq_dfa_blocks_per_sm(int(values), 0)
         for d in dfas:
-            size = len(dfa_walk.pack_table(d).data)
+            packed = dfa_walk.pack_table(d)
+            mode, size = dfa_walk.table_mode(packed, dev, values, staged=True)
+            code = dfa_walk.walk_code(values, mode == dfa_walk.FOLDED)
             variants = [False] + [True] * (size <= per_block)
             best = {v: float("inf") for v in variants}
             for _ in range(3):
                 for v in variants:
                     best[v] = min(best[v], _ms(lambda: walk(d, v)))
-            staged_blocks = lib.dpq_dfa_blocks_per_sm(int(values), size)
+            staged_blocks = lib.dpq_dfa_blocks_per_sm(code, size)
             shared = (f"{best[True]:.4f} ms staged in shared memory "
-                      f"({staged_blocks} blocks/SM)" if True in best else
+                      f"({dfa_walk.MODE_NAMES[mode]}, {size} bytes, "
+                      f"{staged_blocks} blocks/SM)" if True in best else
                       "too large to stage")
-            print(f"K3 {label}, {d.pattern[:40]!r} table {size} bytes: "
-                  f"{best[False]:.4f} ms from device memory ({ldg_blocks} "
-                  f"blocks/SM), {shared}; the wrapper picks "
-                  f"{'shared' if dfa_walk.stages(dev, values, size) else 'device'}"
-                  " memory (least of 3 rounds of 10)", flush=True)
+            picked = dfa_walk.table_mode(packed, dev, values)[0]
+            print(f"K3 {label}, {d.pattern[:40]!r} table {len(packed.data)} "
+                  f"bytes: {best[False]:.4f} ms from device memory "
+                  f"({lib.dpq_dfa_blocks_per_sm(code, 0)} blocks/SM), "
+                  f"{shared}; the wrapper picks the "
+                  f"{dfa_walk.MODE_NAMES[picked]} (least of 3 rounds of 10)",
+                  flush=True)
     return 0
 
 

@@ -11,7 +11,9 @@ dfa_walk.py, csrc/dfa_walk.cu), against the JAX package's table walks.
   against the same references: the three table-DFA patterns, random tables
   up to 4,096 states and 256 byte classes, zero-length values, lanes with
   no value, lanes longer than `steps`, a length prefix that reaches bit 31,
-  rows that are and are not 16-byte aligned.
+  rows that are and are not 16-byte aligned; the page walk with the folded
+  and the packed table, and the bytewise walk it replaced, at the edges of
+  its 16-byte chunks (`PAGE_EDGES`).
 * The routes that reach K3 (`ResidentColumn.scan`, `scan_streaming`,
   `scan_batched`, `matching_rows`, `single_chip_forward`, a one-rank
   `distributed_scan`, `scaling_bench`) on a file with nulls and dictionary
@@ -233,16 +235,22 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.dpq_dfa_stream_host.argtypes = [vp, ctypes.c_longlong, i, vp, vp, vp,
-                                        i, i, vp, vp]
+                                        i, i, i, i, vp, vp]
     lib.dpq_dfa_stream_host.restype = None
+    lib.dpq_dfa_stream_bytewise_host.argtypes = [vp, ctypes.c_longlong, i, vp,
+                                                 vp, vp, i, i, vp, vp]
+    lib.dpq_dfa_stream_bytewise_host.restype = None
     lib.dpq_dfa_values_host.argtypes = [vp, ctypes.c_longlong, i, vp, vp, i,
                                         i, i, i, vp]
     lib.dpq_dfa_values_host.restype = None
     return lib
 
 
-def _host_stream(lib, dfa, pm, plen, nn, steps=None):
-    """The g++ build of the kernel's page walk over the kernel's layouts."""
+def _host_stream(lib, dfa, pm, plen, nn, steps=None, walk="folded"):
+    """The g++ build of the kernel's page walk over the kernel's layouts:
+    `walk` "folded" (the folded table, for automata up to FOLD_MAX_STATES
+    states; the packed one above), "packed", or "bytewise" (the byte loop
+    the kernel replaced)."""
     n = pm.shape[0]
     steps = pm.shape[1] if steps is None else steps
     chunked = stream_matcher.chunk_stream(
@@ -252,11 +260,24 @@ def _host_stream(lib, dfa, pm, plen, nn, steps=None):
     nn = np.ascontiguousarray(nn, np.int32)
     hits = np.full(n, -7, np.int32)
     seen = np.full(n, -7, np.int32)
-    lib.dpq_dfa_stream_host(chunked.ctypes.data, n, steps, plen.ctypes.data,
-                            nn.ctypes.data, packed.data.ctypes.data,
-                            packed.n_classes, packed.accept0,
-                            hits.ctypes.data, seen.ctypes.data)
+    args = (chunked.ctypes.data, n, steps, plen.ctypes.data, nn.ctypes.data,
+            packed.data.ctypes.data)
+    if walk == "bytewise":
+        lib.dpq_dfa_stream_bytewise_host(*args, packed.n_classes,
+                                         packed.accept0, hits.ctypes.data,
+                                         seen.ctypes.data)
+    else:
+        mode = dfa_walk.FOLDED if walk == "folded" else dfa_walk.PACKED_SHARED
+        lib.dpq_dfa_stream_host(*args, packed.n_states, packed.n_classes,
+                                packed.accept0, mode, hits.ctypes.data,
+                                seen.ctypes.data)
     return hits, seen
+
+
+def _host_walks(dfa) -> list[str]:
+    """The host page walks that apply to `dfa`."""
+    folds = dfa.byte_classes().table.shape[0] <= dfa_walk.FOLD_MAX_STATES
+    return ["folded"] * folds + ["packed", "bytewise"]
 
 
 def _host_values(lib, dfa, chars, lens, mode=dfa_walk.FOLDED):
@@ -285,10 +306,11 @@ def test_host_page_walk_matches_jax(host_lib, case):
     refs = [_jax_stream(dfa, pm, plen, nn)]
     if case in MXU_CASES:
         refs.append(_jax_stream(dfa, pm, plen, nn, use_mxu=True))
-    hits, seen = _host_stream(host_lib, dfa, pm, plen, nn)
-    for h0, s0 in refs:
-        np.testing.assert_array_equal(hits, h0, err_msg=case)
-        np.testing.assert_array_equal(seen, s0, err_msg=case)
+    for walk in _host_walks(dfa):
+        hits, seen = _host_stream(host_lib, dfa, pm, plen, nn, walk=walk)
+        for h0, s0 in refs:
+            np.testing.assert_array_equal(hits, h0, err_msg=f"{case} {walk}")
+            np.testing.assert_array_equal(seen, s0, err_msg=f"{case} {walk}")
     h1, s1 = _port_stream(dfa, pm, plen, nn)
     np.testing.assert_array_equal(hits, h1)
     np.testing.assert_array_equal(seen, s1)
@@ -322,11 +344,119 @@ def test_host_page_walk_edges(host_lib, pattern):
     pm, plen, nn = _edge_pages()
     for steps in (None, 9, pm.shape[1] - 17):
         h0, s0 = _jax_stream(dfa, pm, plen, nn, steps)
-        for h, s in (_host_stream(host_lib, dfa, pm, plen, nn, steps),
-                     _port_stream(dfa, pm, plen, nn, steps)):
+        for h, s in ([_host_stream(host_lib, dfa, pm, plen, nn, steps, walk)
+                      for walk in _host_walks(dfa)]
+                     + [_port_stream(dfa, pm, plen, nn, steps)]):
             np.testing.assert_array_equal(h, h0, err_msg=f"steps={steps}")
             np.testing.assert_array_equal(s, s0, err_msg=f"steps={steps}")
     assert s0[2] == 0 and s0[6] == 1
+
+
+# The page walk's edges (csrc/dfa_walk.cu: a lane's 16-byte chunks walked
+# unrolled under a mask of the bytes inside the value; a boundary handled
+# once a value, its 4-byte prefix read from two chunks): {name: lanes}, a
+# lane (items, nn, plen) with None for the page's value count and length.
+# An item is a value (bytes, after its length prefix), a bare length prefix
+# (int) or raw bytes (bytearray).
+_TEXT = b"carefully express deposits ly requests slyly final bold " * 3
+
+
+def _w(n: int, at: int = 0) -> bytes:
+    return _TEXT[at:at + n]
+
+
+def _prefix_edge(k: int):
+    """Lanes whose length prefixes start at byte k of their chunks (one
+    straddles into the next chunk where k > 12)."""
+    return [([_w(k - 4)] + [_w(12, 27)] * 6, None, None),
+            ([_w(k - 4, 5)] + [_w(28)] * 3 + [_w(44, 10)], None, None),
+            ([_w(k - 4)] + [b""] * 3 + [_w(12, 27)], None, None)]
+
+
+PAGE_EDGES = {
+    **{f"prefix at byte {k}": _prefix_edge(k) for k in (12, 13, 14, 15)},
+    "value ends on byte 15": [
+        ([_w(12)] + [_w(12, 3)] * 5, None, None),
+        ([_w(28)] + [_w(28, 9)] * 2, None, None),
+        ([_w(12), b"", _w(8), b"", b""], None, None)],
+    "zero-length values across chunks": [
+        ([_w(6)] + [b""] * 8 + [_w(12, 27)], None, None),
+        ([b""] * 10 + [_w(20)], None, None),
+        ([_w(2)] + [b""] * 5, None, None)],
+    "plen in a prefix": [([_w(12), _w(28, 3), _w(20, 7)], None, pl)
+                         for pl in (16, 17, 18, 19, 49)],
+    "plen in a value": [([_w(12), _w(28, 3), _w(20, 7)], None, pl)
+                        for pl in (20, 30, 47, 48)],
+    "nn mid-chunk": [([_w(5), _w(3), _w(7), _w(12, 27)], nv, None)
+                     for nv in (1, 2, 3)],
+    "bit-31 length": [
+        ([_w(2), 0x80000005, bytearray(_w(33))], None, None),
+        ([_w(11), 0xFFFFFFFF, bytearray(_w(20))], None, None),
+        ([_w(11), 500, bytearray(_w(20))], None, None),
+        ([0x80000000, bytearray(_w(40))], None, None)],
+    "lanes with nn = 0 or plen = 0": [
+        ([_w(12, 27), _w(5)], 0, None), ([_w(12, 27)], 1, 0),
+        ([], 0, 0), ([_w(3)], 1, 3)],
+}
+# cuts of the walk at bytes inside prefixes and values of the edges
+PAGE_EDGE_STEPS = (None, 13, 16, 20, 31, 47)
+# automata of the page edges: the folded table (the pattern's 44 states,
+# and ^$ and a random one whose empty string is accepted) and the packed
+# table of a random 300-state one
+PAGE_EDGE_DFAS = [TABLE_PATTERNS[0], "^$", "random 60x256 accept0",
+                  "random 300x256 accept0"]
+
+
+def _page_edge_dfa(name: str) -> DFA:
+    if not name.startswith("random"):
+        return compile_pattern(name)
+    dfa = _edge_dfa(name.split()[0] + " " + name.split()[1])
+    accept = dfa.accept.copy()
+    accept[0] = True
+    return DFA(dfa.table, accept, name)
+
+
+def _page_edge(names) -> tuple:
+    """([n, pitch] u8, plen, nn) of the lanes of the edges `names`."""
+    pages, plens, nns = [], [], []
+    for name in names:
+        for items, nv, pl in PAGE_EDGES[name]:
+            page = b"".join(bytes(x) if isinstance(x, bytearray)
+                            else x.to_bytes(4, "little") if isinstance(x, int)
+                            else len(x).to_bytes(4, "little") + x
+                            for x in items)
+            pages.append(page)
+            plens.append(len(page) if pl is None else pl)
+            nns.append(sum(not isinstance(x, bytearray) for x in items)
+                       if nv is None else nv)
+    pm = np.zeros((len(pages), max(max(map(len, pages)) + 20, 64)),
+                  np.uint8)
+    for i, page in enumerate(pages):
+        pm[i, :len(page)] = np.frombuffer(page, np.uint8)
+    return pm, np.array(plens, np.int32), np.array(nns, np.int32)
+
+
+@pytest.mark.parametrize("dfa_name", PAGE_EDGE_DFAS)
+@pytest.mark.parametrize("edge", list(PAGE_EDGES))
+def test_host_page_walk_chunk_edges(host_lib, edge, dfa_name):
+    """The page walk with the folded and with the packed table, and the
+    bytewise walk, against the JAX package's `match_payload_stream` at the
+    edges of its chunks, under cuts of `steps` that land in prefixes and
+    in values."""
+    dfa = _page_edge_dfa(dfa_name)
+    pm, plen, nn = _page_edge([edge])
+    walks = ["packed", "bytewise"] + ["folded"] * (
+        dfa.byte_classes().table.shape[0] <= dfa_walk.FOLD_MAX_STATES)
+    assert dfa_name.startswith("random 300") == ("folded" not in walks)
+    for steps in PAGE_EDGE_STEPS:
+        h0, s0 = _jax_stream(dfa, pm, plen, nn, steps)
+        for walk in walks:
+            h, s = _host_stream(host_lib, dfa, pm, plen, nn, steps, walk)
+            np.testing.assert_array_equal(h, h0, err_msg=f"{walk} {steps}")
+            np.testing.assert_array_equal(s, s0, err_msg=f"{walk} {steps}")
+        h, s = _port_stream(dfa, pm, plen, nn, steps)
+        np.testing.assert_array_equal(h, h0)
+        np.testing.assert_array_equal(s, s0)
 
 
 @pytest.mark.parametrize("pitch", [32, 13])
@@ -446,6 +576,25 @@ def test_value_mode_folds_small_automata():
             dfa_walk.PACKED_GLOBAL, 0)
 
 
+@pytest.mark.parametrize("values", [False, True])
+def test_table_mode_of_each_walk(values):
+    """Both walks take the same tables: staged, the folded one up to
+    FOLD_MAX_STATES states and the packed one above; unstaged, the packed
+    table in device memory.  Each walk and table has its own number in
+    csrc/dfa_walk.cu's occupancy query."""
+    small = dfa_walk.pack_table(compile_pattern(TABLE_PATTERNS[0]))
+    big = dfa_walk.pack_table(_edge_dfa("random 300x256"))
+    assert dfa_walk.table_mode(small, 0, values, staged=True) == (
+        dfa_walk.FOLDED, -(-1028 * small.n_states // 16) * 16)
+    assert dfa_walk.table_mode(big, 0, values, staged=True) == (
+        dfa_walk.PACKED_SHARED, len(big.data))
+    for p in (small, big):
+        assert dfa_walk.table_mode(p, 0, values, staged=False) == (
+            dfa_walk.PACKED_GLOBAL, 0)
+    codes = {dfa_walk.walk_code(values, f) for f in (False, True)}
+    assert codes == ({1, 2} if values else {0, 3})
+
+
 def test_pack_table_layout():
     dfa = compile_pattern(TABLE_PATTERNS[0])
     packed = dfa_walk.pack_table(dfa)
@@ -479,6 +628,15 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         dfa_walk.value_walk(torch.zeros((2, 4), dtype=torch.uint8,
                                         device="meta"), lens.to("meta"), dfa)
+    # the yardstick runs on the card only, and checks as the wrapper does
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        dfa_walk.stream_walk_bytewise(torch.zeros((1, 2, 16),
+                                                  dtype=torch.uint8),
+                                      lens, lens, dfa)
+    with pytest.raises(ValueError):
+        dfa_walk.stream_walk_bytewise(torch.zeros((1, 2, 8),
+                                                  dtype=torch.uint8),
+                                      lens, lens, dfa)
 
 
 # ── the routes that reach K3 ────────────────────────────────────────────────
@@ -693,6 +851,80 @@ def test_value_kernel_edges_match_plain(cuda, edge):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dfa_name", PAGE_EDGE_DFAS)
+def test_page_kernel_edges_match_plain(cuda, dfa_name):
+    """The page walk at the edges of its chunks (every lane of PAGE_EDGES
+    in one launch), in every variant the automaton takes and the one the
+    wrapper picks, one launch a call; the bytewise yardstick beside it,
+    counting none."""
+    dfa = _page_edge_dfa(dfa_name)
+    pm, plen, nn = _page_edge(list(PAGE_EDGES))
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
+    chunked = stream_matcher.chunk_stream(pt)
+    pl, nv = torch.from_numpy(plen).to(cuda), torch.from_numpy(nn).to(cuda)
+    for steps in PAGE_EDGE_STEPS:
+        want = dfa_walk.stream_walk_plain(pt, pl, nv, dfa, steps)
+        for staged in (None, False, True):
+            before = dfa_walk.launches
+            got = dfa_walk.stream_walk(chunked, pl, nv, dfa, steps,
+                                       staged=staged)
+            assert dfa_walk.launches == before + 1
+            assert all(map(torch.equal, got, want)), (staged, steps)
+        before = dfa_walk.launches
+        got = dfa_walk.stream_walk_bytewise(chunked, pl, nv, dfa, steps)
+        assert dfa_walk.launches == before
+        assert all(map(torch.equal, got, want)), ("bytewise", steps)
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def comment_buckets(tmp_path_factory):
+    """The resident l_comment column of a 200,000-row lineitem fixture on
+    the card: two length buckets of ~1 KB pages, as the 2M-row column has,
+    and its pages cut into 256-byte segments (the split layout)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from duckdb_parquet_parser_tpu_torch.host.batch import to_tensor
+    from duckdb_parquet_parser_tpu_torch.utils import fixtures
+
+    path = fixtures.lineitem(tmp_path_factory.mktemp("lineitem")
+                             / "l.parquet", 200_000)
+    col = ScanEngine(str(path)).resident("l_comment", device="cuda")
+    lanes = [(b["stream"], b["walk_plen"], b["walk_nn"], b["steps"])
+             for b in col._buckets if b["has_plain"]]
+    seg_payload, seg_len, seg_nn, _seg = port_scan.split_payload_pages(
+        col._batch.arrays, trigger=256, target=256)
+    steps = min(port_scan.scan_steps(seg_len), seg_payload.shape[1])
+    lanes.append((port_scan.resident_stream(seg_payload, steps, "cuda"),
+                  to_tensor(seg_len, "cuda", dtype=np.int32),
+                  to_tensor(seg_nn, "cuda", dtype=np.int32), steps))
+    return lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_page_kernel_on_comment_buckets(comment_buckets, case):
+    """The page walk on l_comment's two buckets and its split layout, in
+    every variant and the one the wrapper picks, and the bytewise
+    yardstick, bit for bit the plain loop's."""
+    dfa = _case(case)[0]
+    assert len(comment_buckets) == 3
+    fits = (len(dfa_walk.pack_table(dfa).data) <= torch.cuda.
+            get_device_properties(0).shared_memory_per_block_optin)
+    for stream, pl, nv, steps in comment_buckets:
+        want = dfa_walk.stream_walk_plain(
+            stream_matcher.unchunk_stream(stream, steps), pl, nv, dfa, steps)
+        walks = [lambda st=st: dfa_walk.stream_walk(stream, pl, nv, dfa,
+                                                    steps, staged=st)
+                 for st in [None, False] + [True] * fits]
+        walks.append(lambda: dfa_walk.stream_walk_bytewise(
+            stream, pl, nv, dfa, steps, staged=fits))
+        for walk in walks:
+            assert all(map(torch.equal, walk(), want)), tuple(stream.shape)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_rowwise_yardstick_matches_plain(cuda):
     dfa = compile_pattern(TABLE_PATTERNS[0])
     chars, lens = _edge_values("P=64 offset 8")
@@ -766,6 +998,27 @@ def test_refused_staging_leaves_no_error_behind(cuda):
         assert torch.equal(dfa_walk.value_walk(chars, lens, dfa,
                                                staged=staged),
                            dfa_walk.value_walk_plain(chars, lens, dfa))
+
+
+@pytest.mark.cuda
+def test_refused_page_staging_leaves_no_error_behind(cuda):
+    """The page walk's refused staging raises and leaves no CUDA error
+    for the next launches, as the per-value walk's does."""
+    rng = np.random.default_rng(5)
+    dfa = DFA(rng.integers(0, 4096, (4096, 256)).astype(np.int32),
+              rng.random(4096) < 0.5, "random 4096x256")
+    pm, plen, nn = _byte_pages(rng)
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
+    chunked = stream_matcher.chunk_stream(pt)
+    pl, nv = torch.from_numpy(plen).to(cuda), torch.from_numpy(nn).to(cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dfa_walk.stream_walk(chunked, pl, nv, dfa, staged=True)
+    assert not dfa_walk.stages(cuda.index or 0, False,
+                               len(dfa_walk.pack_table(dfa).data))
+    want = dfa_walk.stream_walk_plain(pt, pl, nv, dfa)
+    for staged in (None, False):
+        got = dfa_walk.stream_walk(chunked, pl, nv, dfa, staged=staged)
+        assert all(map(torch.equal, got, want))
 
 
 # ── the build ───────────────────────────────────────────────────────────────

@@ -49,6 +49,10 @@ a 500,000-row file, each holding its results against the one-rank answers;
 then `python -m duckdb_parquet_parser_tpu_torch.launch` (`scan`, `index`,
 `scaling-bench`) as three one-rank NCCL processes whose JSON lines must
 agree with the sharded phase; one NCCL rank also scans a table-DFA pattern.
+Then the benchmark program, `python -m duckdb_parquet_parser_tpu_torch.bench
+--quick` (200,000 rows), runs as a child process: it holds every route
+against the native host before timing it, must exit 0 and end with the
+reference benchmark's JSON line, and its detail is logged.
 Each kernel is timed at the main path's shapes beside its plain version,
 its bound (the larger of bytes over the card's memory rate and int32
 operations over the card's int32 rate, for the work these inputs need) and,
@@ -113,6 +117,8 @@ DELTA_PAGES, DELTA_VALUES_PER_PAGE = 2000, 1000
 # the sharded paths' second scale: four ranks share the card
 SHARD_ROWS, SHARD_RANKS, FAILED_RANK = 500_000, 4, 2
 CHILD_TIMEOUT_S = 420
+BENCH_TIMEOUT_S = 600  # the benchmark program at --quick, builds included
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
 L_COMMENT_CHUNKS = 18767  # chunks of the 2M-row l_comment at 4096 bytes
 # patterns outside the register-machine family: K3 walks their table DFA
 TABLE_PATTERNS = ["(furiously|carefully) (express|regular)+ (deposits|requests)",
@@ -526,19 +532,15 @@ def check_dict_count_kernel(device, dcol):
 
 def assert_same(res, eng, column, pattern, negate):
     """Per-page counts of a device scan against the port's native exact
-    host scan (an independent C++ implementation)."""
+    host scan (an independent C++ implementation); (hits, pruned pages)."""
     import numpy as np
+
+    from duckdb_parquet_parser_tpu_torch.bench import hold_counts
 
     ref = eng.cold_scan(column, pattern, negate=negate, exact_counts=True,
                         stats_prune=False)
-    order_a, order_b = np.argsort(res.page_gid), np.argsort(ref.page_gid)
-    if not (np.array_equal(res.page_gid[order_a], ref.page_gid[order_b])
-            and np.array_equal(res.match_counts[order_a],
-                               ref.match_counts[order_b])
-            and np.array_equal(res.value_counts[order_a],
-                               ref.value_counts[order_b])):
-        raise AssertionError(f"{column} ~ {pattern!r} (negate={negate}) "
-                             "disagrees with the native host scan")
+    hold_counts(f"{column} ~ {pattern!r} (negate={negate})", res.page_gid,
+                res.match_counts, ref, res.value_counts)
     return int(np.sum(res.match_counts)), int(np.sum(res.match_counts == 0))
 
 
@@ -693,29 +695,6 @@ def reset_launches() -> None:
     stream_matcher.launches = 0
     dict_lookup.launches = 0
     dfa_walk.launches = 0
-
-
-def read_launches() -> dict:
-    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
-        dict_lookup,
-        stream_matcher,
-    )
-
-    return {"stream_matcher": stream_matcher.launches,
-            "dict_lookup": dict_lookup.launches}
-
-
-def query_launches(fn) -> dict:
-    """Kernel launches of one call of `fn`, from the wrappers' counters."""
-    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
-        dict_lookup,
-        stream_matcher,
-    )
-
-    before = stream_matcher.launches, dict_lookup.launches
-    fn()
-    return {"stream_matcher": stream_matcher.launches - before[0],
-            "dict_lookup": dict_lookup.launches - before[1]}
 
 
 @contextlib.contextmanager
@@ -946,6 +925,7 @@ def run_decode_path(device, rows, fixtures: Path, ops_per_s):
         ParquetReader,
         _materialize_fixed,
     )
+    from duckdb_parquet_parser_tpu_torch.bench import launches_of
     from duckdb_parquet_parser_tpu_torch.ops import decode
     from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
 
@@ -978,7 +958,7 @@ def run_decode_path(device, rows, fixtures: Path, ops_per_s):
         upload_ms = (time.perf_counter() - t0) * 1e3
         kw = dict(max_def=batch.max_def, out_len=batch.vmax,
                   nn_len=batch.nn_cap, mode=batch.mode, device=device)
-        counted = query_launches(lambda: decode.decode_fixed_device(
+        _, counted = launches_of(lambda: decode.decode_fixed_device(
             core, plain, table, bits, **kw))
         per_decode = counted["dict_lookup"]
         if per_decode != (1 if batch.mode != "plain" else 0):
@@ -1270,6 +1250,7 @@ def run_block_scans(device, eng, deng, fixtures: Path):
     import numpy as np
     import torch
 
+    from duckdb_parquet_parser_tpu_torch.bench import launches_of
     from duckdb_parquet_parser_tpu_torch.models.scan import (
         ResidentColumn,
         build_example_batch,
@@ -1299,7 +1280,7 @@ def run_block_scans(device, eng, deng, fixtures: Path):
                 "l_comment", pat, device=device, **kw))):
         for negate in (False, True):
             t0 = time.perf_counter()
-            launches = query_launches(
+            _, launches = launches_of(
                 lambda: assert_same(fn(negate=negate), eng, "l_comment", pat,
                                     negate))
             log(f"{name} l_comment ~ {pat!r}{' negate' if negate else ''}: "
@@ -1320,7 +1301,7 @@ def run_block_scans(device, eng, deng, fixtures: Path):
         f"{dispatch['host_copy_seconds'] * 1e3:.1f} ms")
     for name, fn in (("scan_streaming", deng.scan_streaming),
                      ("scan_batched", deng.scan_batched)):
-        launches = query_launches(lambda: assert_same(
+        _, launches = launches_of(lambda: assert_same(
             fn("city", DICT_PATTERNS[0], device=device), deng, "city",
             DICT_PATTERNS[0], False))
         log(f"{name} city ~ {DICT_PATTERNS[0]!r}: launches {launches}; equal "
@@ -1346,24 +1327,17 @@ def run_block_scans(device, eng, deng, fixtures: Path):
     example.mkdir(parents=True, exist_ok=True)
     reader, batch = build_example_batch(str(example))
     fn, args = single_chip_forward(batch, EXAMPLE_PATTERN, device=device)
-    launches = query_launches(lambda: fn(*args))
+    _, launches = launches_of(lambda: fn(*args))
     counts = fn(*args).cpu().numpy()
     want = ResidentColumn(reader, "s", device=device).scan(EXAMPLE_PATTERN)
     if not np.array_equal(counts, want.match_counts):
         raise AssertionError("single_chip_forward differs from the resident "
                              "scan")
-    if launches != {"stream_matcher": 1, "dict_lookup": 1}:
+    if launches != {"stream_matcher": 1, "dict_lookup": 1, "dfa_walk": 0}:
         raise AssertionError(f"single_chip_forward launched {launches}")
     log(f"single_chip_forward on the example batch ({batch.n_pages} pages): "
         f"{int(counts.sum())} matches, launches {launches}; equal to the "
         "resident scan")
-
-
-def k3_launches() -> dict:
-    """The three wrappers' launch counters."""
-    from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
-
-    return {**read_launches(), "dfa_walk": dfa_walk.launches}
 
 
 def random_dfa(rng, n_states: int, n_classes: int):
@@ -1603,6 +1577,7 @@ def run_table_dfa_path(col, eng, device):
     import numpy as np
     import torch
 
+    from duckdb_parquet_parser_tpu_torch.bench import launches_of
     from duckdb_parquet_parser_tpu_torch.ops import scan
     from duckdb_parquet_parser_tpu_torch.ops.kernels import build
 
@@ -1612,9 +1587,7 @@ def run_table_dfa_path(col, eng, device):
             "dfa_walk": sum(b["has_plain"] for b in col._buckets)}
     first_query = None  # the launches of the first pattern's query
     for pat in TABLE_PATTERNS:
-        before = k3_launches()
-        res = col.scan(pat)
-        per_query = {k: v - before[k] for k, v in k3_launches().items()}
+        res, per_query = launches_of(lambda p=pat: col.scan(p))
         if per_query != want:
             raise AssertionError(f"{pat!r}: one resident query launched "
                                  f"{per_query}, not {want}")
@@ -1629,10 +1602,9 @@ def run_table_dfa_path(col, eng, device):
     pat = TABLE_PATTERNS[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    before = k3_launches()
-    res = eng.scan_streaming("l_comment", pat, device=device)
+    res, launched = launches_of(
+        lambda: eng.scan_streaming("l_comment", pat, device=device))
     stream_ms = (time.perf_counter() - t0) * 1e3
-    launched = {k: v - before[k] for k, v in k3_launches().items()}
     hits, pruned = assert_same(res, eng, "l_comment", pat, False)
     if (launched["dfa_walk"] < eng.reader.num_row_groups()
             or launched["stream_matcher"]):
@@ -2165,6 +2137,7 @@ def run_table_sharded(device, fixtures: Path):
     pattern against the native exact scan, K3's launches counted."""
     import numpy as np
 
+    from duckdb_parquet_parser_tpu_torch.bench import launch_counts
     from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
     from duckdb_parquet_parser_tpu_torch.parallel.mesh import make_mesh
 
@@ -2175,7 +2148,7 @@ def run_table_sharded(device, fixtures: Path):
     t0 = time.perf_counter()
     res = eng.scan("l_comment", pat)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = k3_launches()
+    launches = launch_counts()
     ref = eng.cold_scan("l_comment", pat, exact_counts=True, stats_prune=False)
     keep = res.page_gid >= 0
     order = np.argsort(res.page_gid[keep], kind="stable")
@@ -2210,6 +2183,7 @@ def run_cli(path: Path):
     import io
 
     from duckdb_parquet_parser_tpu_torch import cli
+    from duckdb_parquet_parser_tpu_torch.bench import launches_of
 
     def call(*argv):
         out = io.StringIO()
@@ -2225,7 +2199,7 @@ def run_cli(path: Path):
         raise AssertionError("cli: the file info lacks its lines")
     log(f"cli <file>: {len(info.splitlines())} lines in {ms:.1f} ms")
     scan = ["--regex-column", "l_comment", "--regex", BENCH_PATTERNS[0]]
-    launches = query_launches(lambda: call(str(path), *scan, "--engine",
+    _, launches = launches_of(lambda: call(str(path), *scan, "--engine",
                                            "torch"))
     card, card_ms = call(str(path), *scan, "--engine", "torch")
     native, native_ms = call(str(path), *scan, "--engine", "native")
@@ -2257,6 +2231,7 @@ def sharded_answers(mesh, files: dict, fail):
     on this rank in its first block)."""
     import numpy as np
 
+    from duckdb_parquet_parser_tpu_torch.bench import launches_of
     from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
     from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
     from duckdb_parquet_parser_tpu_torch.parallel.index_build import (
@@ -2273,14 +2248,13 @@ def sharded_answers(mesh, files: dict, fail):
     from duckdb_parquet_parser_tpu_torch.utils.metrics import get_metrics
 
     out, lines = {}, []
-    held = []
     emission_inputs = None
 
     def counted(fn):
         """(value, ms, launches) of one call."""
         t0 = time.perf_counter()
-        launches = query_launches(lambda: held.append(fn()))
-        return held.pop(), (time.perf_counter() - t0) * 1e3, launches
+        res, launches = launches_of(fn)
+        return res, (time.perf_counter() - t0) * 1e3, launches
 
     def by_gid(res):
         keep = res.page_gid >= 0
@@ -2421,6 +2395,7 @@ def run_sharded_one_rank(eng, deng, fixtures: Path):
     import numpy as np
     import torch
 
+    from duckdb_parquet_parser_tpu_torch.bench import launch_counts
     from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
     from duckdb_parquet_parser_tpu_torch.ops.index import (
         build_index_for_column,
@@ -2437,7 +2412,7 @@ def run_sharded_one_rank(eng, deng, fixtures: Path):
     t0 = time.perf_counter()
     reset_launches()
     got, lines, emission_inputs = sharded_answers(mesh, files, fail=None)
-    launches = read_launches()
+    launches = launch_counts()
     for line in lines:
         log("one rank, nccl, full width: " + line)
     log(f"one rank, nccl, full width: launches of the whole pass {launches}")
@@ -2494,7 +2469,7 @@ def run_sharded_one_rank(eng, deng, fixtures: Path):
         f"{time.perf_counter() - t0:.1f} s")
     reset_launches()
     answers, lines, _inputs = sharded_answers(mesh, shard_files, fail=None)
-    launches_small = read_launches()
+    launches_small = launch_counts()
     for line in lines:
         log(f"one rank, nccl, {SHARD_ROWS} rows: " + line)
     log(f"one rank, nccl, {SHARD_ROWS} rows: launches of the whole pass "
@@ -2547,8 +2522,8 @@ def run_child_ranks(answers: dict, shard_files: dict, work: Path):
         log(f"rank {rank}: {rep['compared']} arrays equal to the one-rank "
             f"answers, launches {rep['launches']}, {rep['seconds']:.1f} s "
             "after the group formed")
-        for name, n in rep["launches"].items():
-            if n <= 0:
+        for name in ("stream_matcher", "dict_lookup"):
+            if rep["launches"][name] <= 0:
                 raise AssertionError(f"rank {rank}: {name} was not launched")
     log(f"{SHARD_RANKS} child ranks done in {wall:.1f} s of wall clock")
     return reports
@@ -2562,10 +2537,9 @@ def child_rank(rank: int, job_path: str) -> int:
 
     setup_environment()
     job = json.loads(Path(job_path).read_text())
-    from duckdb_parquet_parser_tpu_torch.ops import strings
-    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
-        dict_lookup,
-        stream_matcher,
+    from duckdb_parquet_parser_tpu_torch.bench import (
+        build_kernels,
+        launch_counts,
     )
     from duckdb_parquet_parser_tpu_torch.parallel.mesh import (
         GROUP_TIMEOUT,
@@ -2573,9 +2547,7 @@ def child_rank(rank: int, job_path: str) -> int:
     )
 
     n_so = len(list((ROOT / "build" / "torch_kernels").glob("*.so")))
-    stream_matcher.prepare([tuple(strings.pattern_ir(p) for p in t)
-                            for t in pattern_tuples()])
-    dict_lookup.prepare()
+    build_kernels(pattern_tuples())
     if len(list((ROOT / "build" / "torch_kernels").glob("*.so"))) != n_so:
         raise AssertionError("a child rank built a kernel: the ranks must "
                              "find every library built")
@@ -2585,8 +2557,7 @@ def child_rank(rank: int, job_path: str) -> int:
     mesh = make_mesh("cuda:0", "gloo")
     files = {k: (tuple(v) if isinstance(v, list) else v)
              for k, v in job["files"].items()}
-    stream_matcher.launches = 0
-    dict_lookup.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     got, lines, emission_inputs = sharded_answers(mesh, files,
                                                   fail=FAILED_RANK)
@@ -2607,8 +2578,7 @@ def child_rank(rank: int, job_path: str) -> int:
     Path(f"{job['out']}.{rank}.json").write_text(json.dumps({
         "lines": lines, "compared": compared, "seconds": seconds,
         "emission_gidx": list(gidx.shape),
-        "launches": {"stream_matcher": stream_matcher.launches,
-                     "dict_lookup": dict_lookup.launches}}))
+        "launches": launch_counts()}))
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -2710,17 +2680,50 @@ def run_launch_entry_points(path: Path, got: dict, card: str):
         "together)")
 
 
+def run_bench_quick() -> dict:
+    """`python -m duckdb_parquet_parser_tpu_torch.bench --quick` as a user
+    runs it, in a child process with a time limit: it must exit 0 and end
+    with the reference benchmark's JSON line.  Its stderr (progress, the
+    detail line, the card) and its last line are logged; returns the
+    detail."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "duckdb_parquet_parser_tpu_torch.bench",
+         "--quick"], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the benchmark exited with {proc.returncode}:"
+                             f"\n{err[-4000:]}")
+    for ln in err.splitlines():
+        log(f"bench: {ln}")
+    lines = out.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else None
+    if (not isinstance(line, dict) or list(line) != BENCH_KEYS
+            or line["metric"] != "decode_regex_scan_rows_per_s"
+            or line["unit"] != "rows/s" or not line["value"] > 0):
+        raise AssertionError(f"the benchmark's last line is {lines[-1:]}")
+    details = [json.loads(ln)["detail"] for ln in err.splitlines()
+               if ln.startswith('{"detail"')]
+    if len(details) != 1:
+        raise AssertionError("the benchmark printed no detail line")
+    log(f"bench --quick: {lines[-1]} ({time.perf_counter() - t0:.1f} s, "
+        f"launches a call: {details[0]['launches']})")
+    return details[0]
+
+
 def setup_environment() -> None:
     """What the parent and its child ranks share: JAX refused, the
-    checkout importable, the native library's cache and compiler."""
+    checkout importable, the native library's cache (its compiler is set
+    by `bench.build_host_library` in the parent, and inherited)."""
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, str(ROOT))
     os.environ.setdefault("DPQ_BUILD_CACHE", str(ROOT / "build" / "native"))
-    # The native host library must link the shared libstdc++: a CXX that
-    # links it statically into the library (some toolchain wrappers do)
-    # makes its iostreams crash once loaded beside the interpreter's own
-    # libstdc++.
-    os.environ["CXX"] = "g++"
 
 
 def main() -> int:
@@ -2747,33 +2750,24 @@ def main() -> int:
         f"device memory; {ops_per_s / 1e12:.3f} T int32 operations/s = "
         f"{ops_note}")
 
-    from duckdb_parquet_parser_tpu_torch.host import build as host_build
-    from duckdb_parquet_parser_tpu_torch.ops import strings
-    from duckdb_parquet_parser_tpu_torch.ops.kernels import (
-        build,
-        dfa_walk,
-        dict_lookup,
-        stream_matcher,
+    from duckdb_parquet_parser_tpu_torch.bench import (
+        build_host_library,
+        build_kernels,
+        launch_counts,
+        launches_of,
     )
 
     t0 = time.perf_counter()
-    lib = host_build.build_library()
+    lib = build_host_library()
     log(f"native host library: {time.perf_counter() - t0:.1f} s "
         f"({lib.name})")
-    tuples = [tuple(strings.pattern_ir(p) for p in t)
-              for t in pattern_tuples()]
 
     # one nvcc run a source, all started together
     t0 = time.perf_counter()
-    build.build_sources([stream_matcher.source(tuples),
-                         build.read_csrc("dict_lookup.cu"),
-                         build.read_csrc("dfa_walk.cu")])
-    stream_matcher.prepare(tuples)
-    dict_lookup.prepare()
-    dfa_walk.prepare()
+    build_kernels(pattern_tuples())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s, three nvcc runs at "
-        f"once ({len(tuples)} stream-matcher tuples, the dictionary kernels, "
-        "the table-DFA walk)")
+        f"once ({len(pattern_tuples())} stream-matcher tuples, the dictionary "
+        "kernels, the table-DFA walk)")
 
     check_stream_kernel(device)
     check_dict_kernel(device)
@@ -2792,23 +2786,20 @@ def main() -> int:
 
     # the decode path and the block scans, counted apart from the resident
     # scan's launches above
-    stream_matcher.launches = 0
-    dict_lookup.launches = 0
+    reset_launches()
     fixtures = ROOT / "build" / "fixtures"
     k_decode = run_decode_path(device, MAIN_ROWS, fixtures, ops_per_s)
-    decode_launches = {"stream_matcher": stream_matcher.launches,
-                       "dict_lookup": dict_lookup.launches}
+    decode_launches = launch_counts()
     run_delta(device, ops_per_s)
     run_block_scans(device, eng, deng, fixtures)
-    slice_launches = {"stream_matcher": stream_matcher.launches,
-                      "dict_lookup": dict_lookup.launches}
+    slice_launches = launch_counts()
     log(f"decode-path launches: {decode_launches}; with the block scans: "
         f"{slice_launches}")
     if decode_launches["dict_lookup"] <= 0:
         raise AssertionError("the dictionary kernel was not launched on the "
                              "decode path")
-    for name, n in slice_launches.items():
-        if n <= 0:
+    for name in ("stream_matcher", "dict_lookup"):
+        if slice_launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the decode and "
                                  "block-scan paths")
     check_small_decodes(device, fixtures)
@@ -2817,9 +2808,10 @@ def main() -> int:
                ("city", dcol, lambda: dcol.scan(DICT_PATTERNS[0])))
     per_query = {}
     for label, rc, fn in queries:
-        per_query[label] = query_launches(fn)
+        _, per_query[label] = launches_of(fn)
         want = {"stream_matcher": sum(b["has_plain"] for b in rc._buckets),
-                "dict_lookup": sum(b["has_dict"] for b in rc._buckets)}
+                "dict_lookup": sum(b["has_dict"] for b in rc._buckets),
+                "dfa_walk": 0}
         log(f"launches of one {label} query: {per_query[label]} "
             f"({len(rc._buckets)} buckets; PLAIN in {want['stream_matcher']}, "
             f"dictionary pages in {want['dict_lookup']})")
@@ -2856,7 +2848,7 @@ def main() -> int:
     str_chars, str_lens = check_table_kernels(col, eng, deng, device)
     reset_launches()
     table_report, table_per_query = run_table_dfa_path(col, eng, device)
-    table_launches = k3_launches()
+    table_launches = launch_counts()
     for column, pat, neg, ms, rows, hits, pruned in table_report:
         timing = ("" if ms is None else
                   f"{ms:.3f} ms/query, {rows / ms * 1e3:.4g} rows/s, ")
@@ -2874,7 +2866,7 @@ def main() -> int:
     reset_launches()
     t0 = time.perf_counter()
     run_cli(fixtures / f"lineitem_{MAIN_ROWS}.parquet")
-    cli_launches = read_launches()
+    cli_launches = launch_counts()
     t1 = time.perf_counter()
     one = run_sharded_one_rank(eng, deng, fixtures)
     sharded_launches = one["launches"]
@@ -2885,13 +2877,16 @@ def main() -> int:
     t3 = time.perf_counter()
     run_launch_entry_points(fixtures / f"lineitem_{MAIN_ROWS}.parquet",
                             one["got"], card)
+    t4 = time.perf_counter()
+    run_bench_quick()
     log(f"front door and sharded paths: cli {t1 - t0:.1f} s, one rank "
         f"{t2 - t1:.1f} s, {SHARD_RANKS} child ranks {t3 - t2:.1f} s, the "
-        f"launch entry points {time.perf_counter() - t3:.1f} s; launches: "
+        f"launch entry points {t4 - t3:.1f} s, the benchmark at --quick "
+        f"{time.perf_counter() - t4:.1f} s; launches: "
         f"cli {cli_launches}, one rank at full width {sharded_launches}, at "
         f"{SHARD_ROWS} rows {one['launches_small']}")
-    for name, n in sharded_launches.items():
-        if n <= 0:
+    for name in ("stream_matcher", "dict_lookup"):
+        if sharded_launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the sharded "
                                  "paths")
 

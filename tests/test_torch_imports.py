@@ -4,7 +4,8 @@ port module imports, and a resident scan runs on the CPU over the port's
 own native library, built from `duckdb_parquet_parser_tpu_torch/host/native/`
 (a register-machine pattern and a table-DFA one); so do the decode entry
 points, `matching_rows` of both kinds of pattern, the command line,
-`ScanEngine.build_index` and a one-rank `distributed_scan`."""
+`ScanEngine.build_index`, a one-rank `distributed_scan` and two routes of
+the benchmark program."""
 
 from __future__ import annotations
 
@@ -165,7 +166,7 @@ FRONT_DOOR_SCRIPT = BLOCK + textwrap.dedent("""
 
     import numpy as np
 
-    from duckdb_parquet_parser_tpu_torch import cli, launch, scaling_bench
+    from duckdb_parquet_parser_tpu_torch import bench, cli, launch, scaling_bench
     from duckdb_parquet_parser_tpu_torch.host import bindings
     from duckdb_parquet_parser_tpu_torch.host.schema import ParquetType
     from duckdb_parquet_parser_tpu_torch.host.writer import (
@@ -220,15 +221,24 @@ FRONT_DOOR_SCRIPT = BLOCK + textwrap.dedent("""
     owned = sharded.build_index("s", 256)
     assert np.array_equal(owned.index.tuple_to_chunk, plain.tuple_to_chunk)
     assert len(owned.chunk_owners) == plain.num_chunks
+
+    # the benchmark's routes over fixtures that are not files
+    bench.ROUNDS = 1
+    b = bench.Bench("cpu", 1)
+    bench.bigpage_route(b, 3000)
+    bench.delta_route(b, 3000)
+    assert b.out["scan_bigpage_rows_per_s"] > 0, b.out
+    assert b.out["decode_delta_i64_rows_per_s"] > 0, b.out
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("front door", plain.num_chunks)
 """)
 
 
 def test_port_front_door_runs_without_jax(tmp_path):
-    """`cli.main`, `ScanEngine.build_index` (plain and checkpointed) and a
-    one-rank `distributed_scan` / `ScanEngine(mesh=...)` over gloo, with
-    the JAX package blocked."""
+    """`cli.main`, `ScanEngine.build_index` (plain and checkpointed), a
+    one-rank `distributed_scan` / `ScanEngine(mesh=...)` over gloo and the
+    benchmark's big-page and delta routes, with the JAX package blocked
+    (tests/test_torch_bench.py runs the whole benchmark so)."""
     script = FRONT_DOOR_SCRIPT.format(
         root=str(ROOT), path=str(tmp_path / "s.parquet"),
         ckpt=str(tmp_path / "ckpt"))

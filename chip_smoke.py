@@ -31,7 +31,10 @@ device memory), its per-value walk in every variant on l_comment's `str_padded`,
 1-300000, pitches 13-256,
 rows off 16-byte alignment); the resident queries (plain and negated),
 `scan_streaming` and `matching_rows` against the native scan, with K3's
-launches counted and none of K1's; a never-seen table-DFA pattern's first
+launches counted and none of K1's; the pattern's host compiles
+(`ops/regex.compile_pattern`) in one resident query and in a first and a
+repeated `scan_streaming`, which must be 1, 1 and 0, with each call's ms
+and the card's name and power limit; a never-seen table-DFA pattern's first
 query, which builds nothing; K3 timed beside its plain version, its bound
 and the kernel each walk replaced, timed in turns (the page walk on both
 buckets and the split layout, its bound recounted from the operations it
@@ -1573,13 +1576,19 @@ def run_table_dfa_path(col, eng, device):
     (e) one query on a table-DFA pattern never seen, which must build
     nothing.  The caller sets the counters to 0 before and reads them
     after.  Returns the report rows and the launches that the first
-    pattern's resident query made."""
+    pattern's resident query made.  Also the compiles of the pattern in
+    one resident query (1) and in a first and a repeated `scan_streaming`
+    (1, then 0: its matchers are cached), each with its ms."""
     import numpy as np
     import torch
 
     from duckdb_parquet_parser_tpu_torch.bench import launches_of
+    from duckdb_parquet_parser_tpu_torch.models import scan as models
     from duckdb_parquet_parser_tpu_torch.ops import scan
     from duckdb_parquet_parser_tpu_torch.ops.kernels import build
+    from duckdb_parquet_parser_tpu_torch.utils.probe_compiles import (
+        counted_compiles,
+    )
 
     report = []
     n_rows = eng.reader.num_rows()
@@ -1600,17 +1609,43 @@ def run_table_dfa_path(col, eng, device):
         report.append(("l_comment", pat, True, None, n_rows, n_hits,
                        n_pruned))
     pat = TABLE_PATTERNS[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res, launched = launches_of(
-        lambda: eng.scan_streaming("l_comment", pat, device=device))
-    stream_ms = (time.perf_counter() - t0) * 1e3
-    hits, pruned = assert_same(res, eng, "l_comment", pat, False)
-    if (launched["dfa_walk"] < eng.reader.num_row_groups()
-            or launched["stream_matcher"]):
-        raise AssertionError(f"scan_streaming of {pat!r} launched {launched}")
+    card = card_line()
+    with counted_compiles() as compiled:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = col.scan(pat)
+        query_ms = (time.perf_counter() - t0) * 1e3
+    assert_same(res, eng, "l_comment", pat, False)
+    if len(compiled) != 1:
+        raise AssertionError(f"one resident query of {pat!r} compiled the "
+                             f"pattern {len(compiled)} times, not once")
+    log(f"compiles: one resident query l_comment ~ {pat!r}: {len(compiled)} "
+        f"compile, {query_ms:.1f} ms ({card})")
+    models._streaming_matchers.cache_clear()
+    stream = []  # (ms, compiles, launches) of a first and a repeated call
+    for _call in range(2):
+        with counted_compiles() as compiled:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, launched = launches_of(
+                lambda: eng.scan_streaming("l_comment", pat, device=device))
+            stream.append(((time.perf_counter() - t0) * 1e3, len(compiled),
+                           launched))
+        hits, pruned = assert_same(res, eng, "l_comment", pat, False)
+        if (launched["dfa_walk"] < eng.reader.num_row_groups()
+                or launched["stream_matcher"]):
+            raise AssertionError(f"scan_streaming of {pat!r} launched "
+                                 f"{launched}")
+    stream_ms, _n, launched = stream[0]
     log(f"scan_streaming l_comment ~ {pat!r}: {stream_ms:.1f} ms, launches "
         f"{launched}; equal to native scan")
+    log(f"compiles: scan_streaming l_comment ~ {pat!r}: first call "
+        f"{stream[0][1]} compile, {stream[0][0]:.1f} ms; repeated call "
+        f"{stream[1][1]} compiles, {stream[1][0]:.1f} ms ({card})")
+    if [n for _ms, n, _l in stream] != [1, 0]:
+        raise AssertionError(f"scan_streaming of {pat!r} compiled the "
+                             f"pattern {[n for _ms, n, _l in stream]} times "
+                             "in a first and a repeated call, not [1, 0]")
     t0 = time.perf_counter()
     rows = eng.matching_rows("l_comment", pat, device=device)
     rows_ms = (time.perf_counter() - t0) * 1e3

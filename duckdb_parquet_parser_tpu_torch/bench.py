@@ -319,7 +319,9 @@ def bucket_step(batch, buckets, patterns, device):
     bucket holds dictionary pages) and leaves its results on the device;
     `answer(results)` gives the [K, N] counts and [N] values on the host,
     in the batch's page order."""
-    irs, dfa = _scan.resolve_matchers(list(patterns))
+    # every pattern of the benchmark is a register machine (K1's tuples,
+    # `build_kernels`): the walk needs no table DFA
+    irs = tuple(strings.pattern_ir(p) for p in patterns)
     k = len(patterns)
     if int(batch.dims.get("dict_n", 0)) > 0:
         dfas = [compile_pattern(p) for p in patterns]
@@ -330,7 +332,7 @@ def bucket_step(batch, buckets, patterns, device):
     def step():
         return [_scan.device_scan_step(
             bk["core"], bk["stream"], bk["walk_plen"], bk["walk_nn"], table,
-            irs=irs, dfa=dfa, vmax=batch.vmax, nn_cap=batch.nn_cap,
+            irs=irs, dfa=None, vmax=batch.vmax, nn_cap=batch.nn_cap,
             max_def=batch.max_def, negate=False, steps=bk["steps"],
             has_plain=bk["has_plain"], has_dict=bk["has_dict"],
             seg=bk["seg"]) for bk in buckets]
@@ -379,7 +381,7 @@ def scan_routes(b: Bench, path: Path) -> dict:
     wplen = to_tensor(np.where(is_dict, 0, plen), dev, dtype=np.int32)
     wnn = to_tensor(np.where(is_dict, 0, arrays["page_nn"]), dev,
                     dtype=np.int32)
-    irs, _dfa = _scan.resolve_matchers([PATTERN])
+    irs = (strings.pattern_ir(PATTERN),)
 
     def whole():
         return _scan.walk_hits(stream, wplen, wnn, irs, None, steps)

@@ -29,6 +29,7 @@ the block scans refuse it, as the reference's do.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -261,7 +262,8 @@ class ScanEngine:
             raise ValueError(f"unknown scan engine: {engine!r}")
         if device is None:
             raise ValueError('the "torch" scan engine needs a device')
-        return self.resident(column, device).scan(pat, negate=negate)
+        return self.resident(column, device)._scan_compiled(
+            [pat], [dfa], negate)[0]
 
     def matching_rows(self, column: str, pattern: str, *,
                       negate: bool = False, like: bool = False,
@@ -301,7 +303,7 @@ class ScanEngine:
         compiled per shape here, so the tail block goes as it is."""
         _check_byte_array(self.reader, column)
         pats, dfas = _scan.prepare_patterns([pattern])
-        irs, dfa = _scan.resolve_matchers(pats)
+        irs, dfa = _scan.resolve_matchers(pats, dfas)
         with trace_session(get_config().profile_dir):
             with get_metrics().timed("prescan", column=column) as box, \
                     stage("prescan"):
@@ -315,8 +317,8 @@ class ScanEngine:
                 # big pages: blocks would walk one mega-page per lane —
                 # the value-boundary split layout instead
                 return ResidentColumn(self.reader, column, device=device,
-                                      batch=batch).scan(pattern,
-                                                        negate=negate)
+                                      batch=batch)._scan_compiled(
+                    pats, dfas, negate)[0]
             bp = min(batch_pages, max(n, 1))
             walker = _BlockWalker(device, irs, dfa)
             with get_metrics().timed("scan_dispatch",
@@ -346,15 +348,15 @@ class ScanEngine:
         page blocks (`block_pages` pages, default a whole row group); each
         block's copy and walk are asynchronous, so the host prescan of row
         group i + 1 overlaps the transfer and walk of row group i's blocks.
-        The pattern's kernel is built before the first block
-        (`stream_matcher.prepare`, the role of the reference's cached jit
-        step).  The reference's `payload_bucket` pinned one compiled shape
-        and has no counterpart here.  This is the device-side answer to a
+        The pattern's matchers come from `_streaming_matchers`, compiled
+        once for repeated calls as the reference's cached jit step is, and
+        its kernel is built before the first block
+        (`stream_matcher.prepare`).  The reference's `payload_bucket`
+        pinned one compiled shape and has no counterpart here.  This is the device-side answer to a
         one-shot scan on a cold file (cold_scan() is the host-side one;
         resident() serves repeated queries)."""
         _check_byte_array(self.reader, column)
-        pats, dfas = _scan.prepare_patterns([pattern])
-        irs, dfa = _scan.resolve_matchers(pats)
+        pats, dfas, irs, dfa = _streaming_matchers(pattern)
         walker = _BlockWalker(device, irs, dfa)
         col_idx = self.reader.find_column(column)
         n_rg = self.reader.num_row_groups()
@@ -368,7 +370,8 @@ class ScanEngine:
                 > _scan.SPLIT_TRIGGER:
             # big pages: the value-boundary split layout instead
             return ResidentColumn(self.reader, column,
-                                  device=device).scan(pattern, negate=negate)
+                                  device=device)._scan_compiled(
+                pats, dfas, negate)[0]
 
         done = []  # (batch, pages walked before it, dict counts or None)
         with ThreadPoolExecutor(max_workers=1) as pool:
@@ -523,20 +526,23 @@ class ResidentColumn:
     def n_pages(self) -> int:
         return self._batch.n_pages
 
-    def _run(self, pats, dfas, negate: bool):
-        """[K, N] match counts and [K, N] value counts of one walk over
-        every bucket (K patterns fused)."""
-        irs, dfa = _scan.resolve_matchers(pats)
-        return _scan.scan_buckets(self._batch, self._buckets, irs, dfa, dfas,
+    def _scan_compiled(self, pats, dfas, negate: bool
+                      ) -> list[PageMatchResult]:
+        """The results of one walk over every bucket for K regexes and
+        their compiled `dfas` (`ops/scan.prepare_patterns`): K register
+        machines fused, or one table DFA.  Compiles nothing."""
+        irs, dfa = _scan.resolve_matchers(pats, dfas)
+        c, v = _scan.scan_buckets(self._batch, self._buckets, irs, dfa, dfas,
                                   negate, self.device)
+        return [PageMatchResult(page_gid=self._gid.copy(),
+                                match_counts=c[r].copy(),
+                                value_counts=v[r].copy())
+                for r in range(len(pats))]
 
     def scan(self, pattern: str, *, negate: bool = False,
              like: bool = False) -> PageMatchResult:
         pats, dfas = _scan.prepare_patterns([pattern], like=like)
-        c, v = self._run(pats, dfas, negate)
-        return PageMatchResult(page_gid=self._gid.copy(),
-                               match_counts=c[0].copy(),
-                               value_counts=v[0].copy())
+        return self._scan_compiled(pats, dfas, negate)[0]
 
     def scan_many(self, patterns: list[str], *, negate: bool = False,
                   like: bool = False) -> list[PageMatchResult]:
@@ -551,16 +557,30 @@ class ResidentColumn:
         results: list = [None] * len(pats)
         for j in range(len(pats)):
             if j not in fused:
-                results[j] = self.scan(pats[j], negate=negate)
+                results[j] = self._scan_compiled([pats[j]], [dfas[j]],
+                                                 negate)[0]
         if fused:
-            c, v = self._run([pats[j] for j in fused],
-                             [dfas[j] for j in fused], negate)
-            for r, j in enumerate(fused):
-                results[j] = PageMatchResult(page_gid=self._gid.copy(),
-                                             match_counts=c[r].copy(),
-                                             value_counts=v[r].copy())
+            for j, res in zip(fused, self._scan_compiled(
+                    [pats[j] for j in fused], [dfas[j] for j in fused],
+                    negate)):
+                results[j] = res
         return results
 
+
+@functools.lru_cache(maxsize=32)
+def _streaming_matchers(pattern: str):
+    """(pats, dfas, irs, dfa) of `scan_streaming`, cached per pattern: the
+    counterpart of the reference's `_streaming_step` cache, so a repeated
+    cold scan compiles nothing.  The reference keys on (pattern, negate)
+    because its jit step folds `negate` in; here `negate` applies after the
+    walk.  A pattern outside the DFA subset raises, and a raise is not
+    cached.  The shared DFAs' arrays are made read-only: no route writes
+    them, and a writer would fail rather than change the next query."""
+    pats, dfas = _scan.prepare_patterns([pattern])
+    for d in dfas:
+        d.table.setflags(write=False)
+        d.accept.setflags(write=False)
+    return (pats, dfas) + _scan.resolve_matchers(pats, dfas)
 
 
 # ── a self-contained example: one fused forward step on a small batch ───────
@@ -606,11 +626,11 @@ def single_chip_forward(batch, pattern: str, *, device):
     the [N] per-page match counts.  (The reference takes a compiled DFA
     for its one-hot table walk; the kernel's register machine is traced
     from the pattern, so this takes the pattern.)"""
-    pats, (dfa_c,) = _scan.prepare_patterns([pattern])
-    irs, dfa = _scan.resolve_matchers(pats)
+    pats, dfas = _scan.prepare_patterns([pattern])
+    irs, dfa = _scan.resolve_matchers(pats, dfas)
     arrays = batch.arrays
     core = batch.to_device(device, _decode.DECODE_ARRAYS)
-    dict_match = _scan.accept_table(_scan.dict_accepts(batch, [dfa_c]),
+    dict_match = _scan.accept_table(_scan.dict_accepts(batch, dfas),
                                     device)[0]
     vmax, nn_cap, max_def = batch.vmax, batch.nn_cap, batch.max_def
     steps = min(_scan.scan_steps(arrays["page_payload_len"]),

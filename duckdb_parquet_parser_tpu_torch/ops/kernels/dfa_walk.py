@@ -324,9 +324,9 @@ def value_walk_plain(chars: torch.Tensor, lens: torch.Tensor, dfa):
     `state = table[state, c]` where the value is still long enough.
     Returns [L] bool accepts."""
     dev = chars.device
-    tflat = torch.as_tensor(np.asarray(dfa.table, dtype=np.int32)).reshape(
+    tflat = torch.tensor(np.asarray(dfa.table, dtype=np.int32)).reshape(
         -1).to(dev)
-    acc = torch.as_tensor(np.asarray(dfa.accept, dtype=bool)).to(dev)
+    acc = torch.tensor(np.asarray(dfa.accept, dtype=bool)).to(dev)
     state = torch.zeros(chars.shape[0], dtype=torch.int32, device=dev)
     for j in range(chars.shape[1]):
         nxt = tflat[(state * 256 + chars[:, j].to(torch.int32)).long()]

@@ -296,16 +296,18 @@ def dict_counts(core, table, *, vmax: int, nn_cap: int, max_def: int,
     return counts.to(torch.int32), valid.sum(1).to(torch.int32)
 
 
-def resolve_matchers(patterns):
+def resolve_matchers(patterns, dfas):
     """(irs, dfa) for a walk: K register-machine IRs (the K1 kernel), or
-    for one pattern outside that family its table DFA."""
+    for one pattern outside that family its table DFA, `dfas[0]`: the
+    patterns' compiled DFAs (`prepare_patterns`) are passed in, so a query
+    compiles each pattern once."""
     irs = [strings.pattern_ir(p) for p in patterns]
     if all(ir is not None for ir in irs):
         return tuple(irs), None
     if len(patterns) != 1:
         raise ValueError("a pattern that needs the table DFA is scanned "
                          "alone")
-    return (), compile_pattern(patterns[0])
+    return (), dfas[0]
 
 
 def walk_hits(stream, plen, nn, irs, dfa, steps) -> torch.Tensor:

@@ -156,8 +156,8 @@ def ir_spec(ir: TransitionIR):
 def dfa_spec(table, accept, device):
     """(transition, 1, accept_empty) for the table DFA: `state =
     table[state, c]`, `accept = accept[state]` as flat gathers."""
-    tflat = torch.as_tensor(table, dtype=torch.int32).reshape(-1).to(device)
-    acc = torch.as_tensor(accept).to(torch.int32).to(device)
+    tflat = torch.tensor(table, dtype=torch.int32).reshape(-1).to(device)
+    acc = torch.tensor(accept).to(torch.int32).to(device)
     accept_empty = int(acc[0])
 
     def transition(state, c):

@@ -71,7 +71,7 @@ def distributed_scan(mesh: PagesMesh, batch, dfa, *,
         raise ValueError("distributed_scan needs a PS_PAYLOAD batch")
     lo, hi = shard_bounds(mesh, batch.n_pages)
     shard = batch.slice_pages(lo, hi)
-    irs, walk_dfa = _scan.resolve_matchers([dfa.pattern])
+    irs, walk_dfa = _scan.resolve_matchers([dfa.pattern], [dfa])
     buckets, _split = _scan.resident_buckets(shard, mesh.device)
     counts, values = _scan.scan_buckets(shard, buckets, irs, walk_dfa, [dfa],
                                         negate, mesh.device)

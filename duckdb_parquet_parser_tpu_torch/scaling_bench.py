@@ -85,7 +85,7 @@ def run(mesh, *, rows: int, pattern: str, reps: int) -> int:
     on_card = mesh.device.type == "cuda"
     batch = _prescan_fixture(rows)
     dfa = compile_pattern(pattern)
-    irs, walk_dfa = _scan.resolve_matchers([pattern])
+    irs, walk_dfa = _scan.resolve_matchers([pattern], [dfa])
 
     def measure(n: int, rank: int, sharded: bool) -> dict:
         """The scan step at `n` shards, this process walking shard `rank`

@@ -151,7 +151,8 @@ def _port_stream(dfa, pm, plen, nn, steps=None):
 def test_table_patterns_need_the_table_dfa():
     for p in TABLE_PATTERNS:
         assert strings.pattern_ir(p) is None, p
-        assert port_scan.resolve_matchers([p])[0] == (), p
+        dfa = compile_pattern(p)
+        assert port_scan.resolve_matchers([p], [dfa]) == ((), dfa), p
 
 
 @pytest.mark.parametrize("case", MXU_CASES)

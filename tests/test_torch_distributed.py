@@ -192,6 +192,6 @@ def test_pad_pages_need_no_walk(paths):
     assert any(b["has_dict"] for b in buckets)
     dfa = ns.compile_pattern("alpha")
     counts, values = scan.scan_buckets(padded, buckets, *scan.resolve_matchers(
-        ["alpha"]), [dfa], True, "cpu")
+        ["alpha"], [dfa]), [dfa], True, "cpu")
     assert (counts[0, batch.n_pages:] == 0).all()
     assert (values[0, batch.n_pages:] == 0).all()

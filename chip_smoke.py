@@ -47,11 +47,18 @@ prints, `index ... l_comment` with its 18767 chunks); one rank over NCCL on
 the card at full width (`ScanEngine(mesh=...)`, `distributed_decode`,
 `distributed_index_build` in both exchange modes, an elastic scan) against
 the native scan, `read_column` and `build_index_for_column`; and four ranks
-over gloo that share the card, started as child processes of this script on
-a 500,000-row file, each holding its results against the one-rank answers;
+over gloo that share the card, started as a group by
+`utils/probe_sharded.run_group` on a 500,000-row file, each holding its
+results against the one-rank answers;
 then `python -m duckdb_parquet_parser_tpu_torch.launch` (`scan`, `index`,
 `scaling-bench`) as three one-rank NCCL processes whose JSON lines must
 agree with the sharded phase; one NCCL rank also scans a table-DFA pattern.
+Then the multi-device dry run, `python -m duckdb_parquet_parser_tpu_torch.dryrun
+2 --backend gloo --device cuda`: two gloo ranks that share the card, started
+by the module, must print the reference's line at two devices, and each
+rank must have launched K1 and K2; every call of the kernels' wrappers that
+the ranks recorded (`--record`) is made again on the card, the kernel
+beside its plain version on the same tensors, compared exactly.
 Then the benchmark program, `python -m duckdb_parquet_parser_tpu_torch.bench
 --quick` (200,000 rows), runs as a child process: it holds every route
 against the native host before timing it, must exit 0 and end with the
@@ -67,8 +74,8 @@ builds its own native host library and kernels from this checkout, and
 refuses any import of JAX or of the JAX package.
 
 Usage: python3 chip_smoke.py      (needs one CUDA device; no arguments)
-       (`--shard-rank R JOB.json` is how it starts its own child ranks,
-       `--profile-probe [late]` its fresh-process profiles of K3)
+       (`--profile-probe [late]` is how it starts its fresh-process
+       profiles of K3)
 
 Prints, in order: the card, build seconds, per-phase results, a JSON line
 {"kernels": [...]}, the card's name and power limit as nvidia-smi reports
@@ -81,10 +88,10 @@ from __future__ import annotations
 
 import contextlib
 import importlib.abc
+import importlib.util
 import json
 import os
 import re
-import socket
 import subprocess
 import sys
 import time
@@ -126,6 +133,16 @@ L_COMMENT_CHUNKS = 18767  # chunks of the 2M-row l_comment at 4096 bytes
 # patterns outside the register-machine family: K3 walks their table DFA
 TABLE_PATTERNS = ["(furiously|carefully) (express|regular)+ (deposits|requests)",
                   "(ly )+requests", "[a-z]+ly (final|bold)+ "]
+# the multi-device dry run on the card: two gloo ranks that share it, and
+# the reference's line at two devices (`__graft_entry__.dryrun_multichip(2)`,
+# to which tests/test_torch_dryrun.py holds the port's), with its notes of
+# the sections that need pyarrow
+DRYRUN_RANKS = 2
+DRYRUN_LINE = (
+    "dryrun_multichip(2): scan totals=[134, 211] exchange=211 entries across "
+    "6 chunks (skew 1.12); skewed fixture: byte skew 1.00, capacity ratio "
+    "1.02; elastic recovery ok (reran 2 pages); sharded decode checksum "
+    "345280; {nested}; {delta}; sub-meshes: n/a — OK")
 # a table-DFA pattern no query has seen: K3's table is data, so its first
 # query builds nothing
 COLD_TABLE_PATTERN = "(slyly|quickly) (pending|final)+ (packages|accounts)"
@@ -698,29 +715,6 @@ def reset_launches() -> None:
     stream_matcher.launches = 0
     dict_lookup.launches = 0
     dfa_walk.launches = 0
-
-
-@contextlib.contextmanager
-def recorded_lookups():
-    """Notes the (table, gidx) of every `dict_lookup` call made inside: the
-    module's wrapper is replaced by one that keeps its arguments and calls
-    on, so the launches, the counts and the results stay the path's own.
-    The timings below take their inputs from here, not from a rebuilt
-    guess of what the path passes."""
-    from duckdb_parquet_parser_tpu_torch.ops.kernels import dict_lookup
-
-    calls = []
-    real = dict_lookup.dict_lookup
-
-    def noting(planes, gidx):
-        calls.append((planes, gidx))
-        return real(planes, gidx)
-
-    dict_lookup.dict_lookup = noting
-    try:
-        yield calls
-    finally:
-        dict_lookup.dict_lookup = real
 
 
 def best_of(fns: dict, reps: int, rounds: int = 6) -> dict:
@@ -2254,170 +2248,6 @@ def run_cli(path: Path):
         f"{index.split()[5]} chunks in {ms:.1f} ms")
 
 
-def sharded_answers(mesh, files: dict, fail):
-    """The sharded paths on `mesh`, every rank making the same calls:
-    `ScanEngine(mesh=...).scan` of l_comment and city, an elastic scan of
-    each whose hook fails rank `fail` (nobody when None), the index build
-    of both columns in both exchange modes (with `fail`, once more with a
-    hook that fails that rank in block 0), and the sharded decode of
-    `files["decode"]` (path, column).  Returns ({name: array}, the results
-    in a form that does not depend on the number of ranks; [log lines];
-    the (table, gidx) that the emission decode of city gave `dict_lookup`
-    on this rank in its first block)."""
-    import numpy as np
-
-    from duckdb_parquet_parser_tpu_torch.bench import launches_of
-    from duckdb_parquet_parser_tpu_torch.host.reader import ParquetReader
-    from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
-    from duckdb_parquet_parser_tpu_torch.parallel.index_build import (
-        distributed_index_build,
-    )
-    from duckdb_parquet_parser_tpu_torch.parallel.partition import pad_pages
-    from duckdb_parquet_parser_tpu_torch.parallel.pipeline import (
-        distributed_decode,
-    )
-    from duckdb_parquet_parser_tpu_torch.utils.config import (
-        EngineConfig,
-        set_config,
-    )
-    from duckdb_parquet_parser_tpu_torch.utils.metrics import get_metrics
-
-    out, lines = {}, []
-    emission_inputs = None
-
-    def counted(fn):
-        """(value, ms, launches) of one call."""
-        t0 = time.perf_counter()
-        res, launches = launches_of(fn)
-        return res, (time.perf_counter() - t0) * 1e3, launches
-
-    def by_gid(res):
-        keep = res.page_gid >= 0
-        order = np.argsort(res.page_gid[keep], kind="stable")
-        return {"page_gid": res.page_gid[keep][order],
-                "match_counts": res.match_counts[keep][order],
-                "value_counts": res.value_counts[keep][order],
-                "totals": np.asarray(res.totals)}
-
-    def index_arrays(res):
-        entries = np.concatenate(res.received)
-        return {"tuple_to_chunk": res.index.tuple_to_chunk,
-                "chunk_starts": res.index.chunk_starts,
-                "chunk_of_entry": res.index.chunk_of_entry,
-                "entries": entries[np.lexsort(entries.T[::-1])]}
-
-    for name, column, pat in (("lineitem", "l_comment", BENCH_PATTERNS[0]),
-                              ("city", "city", DICT_PATTERNS[0])):
-        eng = ScanEngine(str(files[name]), mesh=mesh)
-        res, ms, launches = counted(lambda: eng.scan(column, pat))
-        clean = by_gid(res)
-        for k, v in clean.items():
-            out[f"scan/{column}/{k}"] = v
-        lines.append(
-            f"scan {column} ~ {pat!r}: {ms:.1f} ms, {len(res.page_gid)} "
-            f"padded pages, totals {res.totals.tolist()}, launches "
-            f"{launches}")
-        kernel = "stream_matcher" if column == "l_comment" else "dict_lookup"
-        if launches[kernel] < 1:
-            raise AssertionError(f"sharded scan of {column}: {kernel} was "
-                                 "not launched")
-
-        def fail_once(result, rnd):
-            return {fail} if fail is not None and rnd == 0 else ()
-
-        res, ms, launches = counted(
-            lambda: eng.scan(column, pat, fault_hook=fail_once))
-        for k, v in by_gid(res).items():
-            if not np.array_equal(v, clean[k]):
-                raise AssertionError(f"elastic scan of {column}: {k} differs "
-                                     "from the clean scan")
-        want = [] if fail is None else [fail]
-        if res.elastic_report["failed"] != want:
-            raise AssertionError(f"elastic scan of {column}: report "
-                                 f"{res.elastic_report}")
-        lines.append(f"elastic scan {column} (hook fails "
-                     f"{'nobody' if fail is None else f'rank {fail}'}): "
-                     f"{ms:.1f} ms, report {res.elastic_report}, launches "
-                     f"{launches}; equal to the clean scan")
-
-        built = {}
-        for mode in ("ragged", "padded"):
-            set_config(EngineConfig(exchange_mode=mode))
-            try:
-                with recorded_lookups() as lookups:
-                    res, ms, launches = counted(
-                        lambda: distributed_index_build(mesh, eng.reader,
-                                                        column))
-            finally:
-                set_config(None)
-            if len(lookups) != launches["dict_lookup"]:
-                raise AssertionError(
-                    f"index build {column}: {len(lookups)} dict_lookup calls "
-                    f"but {launches['dict_lookup']} launches")
-            if lookups and emission_inputs is None:
-                emission_inputs = lookups[0]
-            built[mode] = index_arrays(res)
-            for k, v in built[mode].items():
-                out[f"index/{column}/{mode}/{k}"] = v
-            stages = get_metrics().summary()
-            emis = stages["index_emissions"][-1]
-            exch = stages["index_exchange"][-1]
-            n_entries = sum(len(r) for r in res.received)
-            lines.append(
-                f"index build {column} ({mode}): {ms:.1f} ms, of which the "
-                f"sharded emission decode {emis['seconds'] * 1e3:.1f} ms "
-                f"({emis['pages']} pages) and the exchange "
-                f"{exch['seconds'] * 1e3:.1f} ms ({exch['blocks']} blocks, "
-                f"{res.shuffle_bytes} bytes, capacity "
-                f"{res.exchange_capacity}); {n_entries} entries, "
-                f"{len(res.index.chunk_starts)} chunks, planned slots over "
-                f"entries {res.exchange_planned_slots / max(n_entries, 1):.4f}"
-                f", skew {res.skew_factor:.4f}, launches {launches}")
-            pages = emis["pages"]
-            blocks = -(-pages // 8192)
-            want_k2 = blocks if column == "city" else 0
-            if launches["dict_lookup"] < want_k2 or (
-                    column == "l_comment" and launches["dict_lookup"]):
-                raise AssertionError(
-                    f"index build {column}: dict_lookup launched "
-                    f"{launches['dict_lookup']} times over {blocks} blocks")
-        for k in ("tuple_to_chunk", "chunk_starts", "chunk_of_entry",
-                  "entries"):
-            if not np.array_equal(built["ragged"][k], built["padded"][k]):
-                raise AssertionError(f"index build {column}: {k} differs "
-                                     "between the exchange modes")
-        if fail is not None:
-            def fail_block(blk, lens, emit):
-                return {fail} if blk == 0 else ()
-
-            res, ms, launches = counted(lambda: distributed_index_build(
-                mesh, eng.reader, column, fault_hook=fail_block))
-            for k, v in index_arrays(res).items():
-                if not np.array_equal(v, built["ragged"][k]):
-                    raise AssertionError(f"elastic index build {column}: "
-                                         f"{k} differs from the clean build")
-            lines.append(f"elastic index build {column} (rank {fail} fails in "
-                         f"block 0): {ms:.1f} ms, launches {launches}; equal "
-                         "to the clean build")
-
-    path, column = files["decode"]
-    reader = ParquetReader(str(path))
-    batch = reader.prescan(column)
-    (planes, nonnull, checksum), ms, launches = counted(
-        lambda: distributed_decode(mesh, pad_pages(batch, 8 * mesh.size)))
-    if launches["dict_lookup"] != 1:
-        raise AssertionError(f"sharded decode of {column}: dict_lookup "
-                             f"launched {launches['dict_lookup']} times")
-    n = batch.n_pages
-    out[f"decode/{column}/nonnull"] = nonnull[:n]
-    out[f"decode/{column}/checksum"] = np.int64(checksum)
-    for j, plane in enumerate(planes):
-        out[f"decode/{column}/plane{j}"] = plane[:n]
-    lines.append(f"sharded decode of {column}: {ms:.1f} ms, {n} pages x "
-                 f"{batch.vmax}, checksum {checksum}, launches {launches}")
-    return out, lines, emission_inputs
-
-
 def run_sharded_one_rank(eng, deng, fixtures: Path):
     """One rank over NCCL on the card at full width, held against the
     native exact scan, `read_column` and `build_index_for_column`; then the
@@ -2437,6 +2267,9 @@ def run_sharded_one_rank(eng, deng, fixtures: Path):
     )
     from duckdb_parquet_parser_tpu_torch.parallel.mesh import make_mesh
     from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
+    from duckdb_parquet_parser_tpu_torch.utils.probe_sharded import (
+        sharded_answers,
+    )
 
     mesh = make_mesh("cuda:0", "nccl")
     log(f"mesh: rank {mesh.rank} of {mesh.size} on {mesh.device} over "
@@ -2515,115 +2348,36 @@ def run_sharded_one_rank(eng, deng, fixtures: Path):
 
 
 def run_child_ranks(answers: dict, shard_files: dict, work: Path):
-    """Four ranks over gloo that share the card, as child processes of
-    this script, every kernel and the native library built before.  Each
-    holds its results against `answers`; a non-zero exit or a rank that
-    outlives its timeout fails the run."""
+    """Four ranks over gloo that share the card, started as a group by
+    `utils/probe_sharded.run_group` after every kernel and the native
+    library were built here (a rank that builds one fails).  Each holds its
+    results against `answers`; a non-zero exit or a rank that outlives its
+    timeout fails the run.  Returns the ranks' reports and the path of the
+    emission decode's `dict_lookup` inputs that rank 0 saved."""
     import numpy as np
+
+    from duckdb_parquet_parser_tpu_torch.utils.probe_sharded import run_group
 
     work.mkdir(parents=True, exist_ok=True)
     for old in work.glob("*"):
         old.unlink()
     np.savez(work / "answers.npz", **answers)
-    job = work / "job.json"
-    job.write_text(json.dumps({
-        "store": str(work / "store"), "answers": str(work / "answers.npz"),
-        "out": str(work / "rank"),
-        "files": {k: ([str(v[0]), v[1]] if isinstance(v, tuple) else str(v))
-                  for k, v in shard_files.items()}}))
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
-         str(rank), str(job)], cwd=str(ROOT), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for rank in range(SHARD_RANKS)]
-    try:
-        ends = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, (_out, err)) in enumerate(zip(procs, ends)):
-        if p.returncode != 0:
-            raise AssertionError(f"child rank {rank} exited with "
-                                 f"{p.returncode}:\n{err[-3000:]}")
-    wall = time.perf_counter() - t0
-    reports = [json.loads((work / f"rank.{rank}.json").read_text())
-               for rank in range(SHARD_RANKS)]
+    reports, wall = run_group(
+        SHARD_RANKS, "gloo", "cuda", shard_files, work, work / "answers.npz",
+        save=False, fail=FAILED_RANK, kernel_patterns=pattern_tuples(),
+        timeout=CHILD_TIMEOUT_S)
     for line in reports[0]["lines"]:
         log(f"{SHARD_RANKS} ranks, gloo, one card, {SHARD_ROWS} rows: "
             + line)
     for rank, rep in enumerate(reports):
-        log(f"rank {rank}: {rep['compared']} arrays equal to the one-rank "
-            f"answers, launches {rep['launches']}, {rep['seconds']:.1f} s "
-            "after the group formed")
+        log(f"rank {rank} on {rep['device']}: {rep['compared']} arrays equal "
+            f"to the one-rank answers, launches {rep['launches']}, "
+            f"{rep['seconds']:.1f} s after the group formed")
         for name in ("stream_matcher", "dict_lookup"):
             if rep["launches"][name] <= 0:
                 raise AssertionError(f"rank {rank}: {name} was not launched")
     log(f"{SHARD_RANKS} child ranks done in {wall:.1f} s of wall clock")
-    return reports
-
-
-def child_rank(rank: int, job_path: str) -> int:
-    """One of the four ranks that share the card (see run_child_ranks)."""
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-
-    setup_environment()
-    job = json.loads(Path(job_path).read_text())
-    from duckdb_parquet_parser_tpu_torch.bench import (
-        build_kernels,
-        launch_counts,
-    )
-    from duckdb_parquet_parser_tpu_torch.parallel.mesh import (
-        GROUP_TIMEOUT,
-        make_mesh,
-    )
-
-    n_so = len(list((ROOT / "build" / "torch_kernels").glob("*.so")))
-    build_kernels(pattern_tuples())
-    if len(list((ROOT / "build" / "torch_kernels").glob("*.so"))) != n_so:
-        raise AssertionError("a child rank built a kernel: the ranks must "
-                             "find every library built")
-    dist.init_process_group("gloo", init_method=f"file://{job['store']}",
-                            rank=rank, world_size=SHARD_RANKS,
-                            timeout=GROUP_TIMEOUT)
-    mesh = make_mesh("cuda:0", "gloo")
-    files = {k: (tuple(v) if isinstance(v, list) else v)
-             for k, v in job["files"].items()}
-    reset_launches()
-    t0 = time.perf_counter()
-    got, lines, emission_inputs = sharded_answers(mesh, files,
-                                                  fail=FAILED_RANK)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    with np.load(job["answers"]) as want:
-        if sorted(want.files) != sorted(got):
-            raise AssertionError(f"rank {rank}: other results than one rank")
-        for k in want.files:
-            if not np.array_equal(got[k], want[k]):
-                raise AssertionError(f"rank {rank}: {k} differs from the "
-                                     "one-rank answer")
-        compared = len(want.files)
-    table, gidx = emission_inputs
-    if rank == 0:  # the only rank whose city shard holds real pages
-        np.savez(f"{job['out']}.emission.npz", table=table.cpu().numpy(),
-                 gidx=gidx.cpu().numpy())
-    Path(f"{job['out']}.{rank}.json").write_text(json.dumps({
-        "lines": lines, "compared": compared, "seconds": seconds,
-        "emission_gidx": list(gidx.shape),
-        "launches": launch_counts()}))
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
-
-
-def free_port() -> int:
-    """A TCP port of this host that nothing listens on."""
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    return reports, work / f"report_{SHARD_RANKS}.emission.npz"
 
 
 def run_launch_entry_points(path: Path, got: dict, card: str):
@@ -2634,6 +2388,11 @@ def run_launch_entry_points(path: Path, got: dict, card: str):
     picks the card), and a short `scaling-bench` with neither (`make_mesh`
     forms its group of one).  Each one's JSON line is held against the
     one-rank results `got` of the sharded phase on the same file."""
+    from duckdb_parquet_parser_tpu_torch.parallel.mesh import (
+        free_port,
+        run_processes,
+    )
+
     mod = "duckdb_parquet_parser_tpu_torch.launch"
     base = {k: v for k, v in os.environ.items()
             if not k.startswith("DPQ_") or k == "DPQ_BUILD_CACHE"}
@@ -2651,24 +2410,17 @@ def run_launch_entry_points(path: Path, got: dict, card: str):
         "scaling-bench": (["scaling-bench", "--reps", "3"], {}),
     }
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-m", mod, *argv], cwd=str(ROOT),
-        env={**base, **env}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for name, (argv, env) in jobs.items()}
-    try:
-        ends = {name: p.communicate(timeout=CHILD_TIMEOUT_S)
-                for name, p in procs.items()}
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    # three groups of one rank each: one failing ends none of the others
+    ends = dict(zip(jobs, run_processes(
+        [[sys.executable, "-m", mod, *argv] for argv, _env in jobs.values()],
+        CHILD_TIMEOUT_S, cwd=str(ROOT),
+        env=[{**base, **env} for _argv, env in jobs.values()], grace=None)))
     found = {}
-    for name, p in procs.items():
-        out, err = ends[name]
-        if p.returncode != 0:
+    for name, end in ends.items():
+        out, err = end.out, end.err
+        if end.returncode != 0:
             raise AssertionError(f"launch {name} exited with "
-                                 f"{p.returncode}:\n{err[-3000:]}")
+                                 f"{end.returncode}:\n{err[-3000:]}")
         formed = "no" if name == "scaling-bench" else "yes"
         want = (f"[launch] processes=1 (group={formed}) device=cuda:0 "
                 "backend=nccl")
@@ -2713,6 +2465,88 @@ def run_launch_entry_points(path: Path, got: dict, card: str):
     log(f"the three launch entry points agree with the sharded phase "
         f"({time.perf_counter() - t0:.1f} s of wall clock, started "
         "together)")
+
+
+def run_dryrun() -> tuple[list, dict]:
+    """`python -m duckdb_parquet_parser_tpu_torch.dryrun 2 --backend gloo
+    --device cuda` as a user runs it: the module starts two gloo ranks that
+    share the card.  Its line must be the reference's at two devices
+    (`DRYRUN_LINE`, sections 7 and 8 noted as the reference notes them
+    where pyarrow does not import), every rank's K1 and K2 launches over
+    the dry run more than 0.  With `--record`, each rank saved the
+    arguments of every call of the kernels' wrappers: here each call is
+    made again on the card, the kernel beside its plain version on the
+    same tensors, compared exactly (these launches are not the dry run's).
+    Returns each rank's launches and {wrapper: {"calls": [a rank],
+    "max_abs_err"}}."""
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.parallel.mesh import run_processes
+    from duckdb_parquet_parser_tpu_torch.utils.record import hold_recorded
+
+    record = ROOT / "build" / "dryrun_calls"
+    for old in record.glob("rank*.pt"):
+        old.unlink()
+    t0 = time.perf_counter()
+    end, = run_processes(
+        [[sys.executable, "-m", "duckdb_parquet_parser_tpu_torch.dryrun",
+          str(DRYRUN_RANKS), "--backend", "gloo", "--device", "cuda",
+          "--record", str(record)]], CHILD_TIMEOUT_S, cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    if end.returncode != 0:
+        raise AssertionError(f"the dry run exited with {end.returncode}:\n"
+                             f"{end.err[-4000:]}")
+    pyarrow = importlib.util.find_spec("pyarrow") is not None
+    want = DRYRUN_LINE.format(
+        nested=("nested scan 113 hits" if pyarrow
+                else "nested scan skipped (no pyarrow)"),
+        delta=("sharded delta decode 6 pages" if pyarrow
+               else "sharded delta decode skipped (no pyarrow)"))
+    if end.out.strip().splitlines() != [want]:
+        raise AssertionError(f"the dry run printed {end.out!r}, not {want!r}")
+    reports = re.findall(rf"^\[dryrun\] rank (\d+) of {DRYRUN_RANKS} on "
+                         r"cuda:0 over gloo: launches (\{.*?\}), ([0-9.]+) s$",
+                         end.err, re.M)
+    launches = [json.loads(found) for _rank, found, _s in sorted(reports)]
+    if [int(r) for r, _l, _s in sorted(reports)] != list(range(DRYRUN_RANKS)):
+        raise AssertionError(f"the dry run's ranks reported {reports}")
+    for rank, got in enumerate(launches):
+        for name in ("stream_matcher", "dict_lookup"):
+            if got[name] <= 0:
+                raise AssertionError(f"dry run rank {rank}: {name} was not "
+                                     "launched")
+    log(f"dry run, {DRYRUN_RANKS} gloo ranks sharing the card: {want}")
+    for (rank, _l, secs), got in zip(sorted(reports), launches):
+        log(f"dry run rank {rank}: launches {got}, {secs} s in the dry run")
+    log(f"the dry run took {seconds:.1f} s of wall clock, the ranks' start "
+        "and kernel build included")
+
+    held = {}
+    for rank, got in enumerate(launches):
+        calls = torch.load(record / f"rank{rank}.pt", weights_only=False)
+        result = hold_recorded(calls, "cuda:0")
+        # a call launches its kernel unless its input is empty
+        by_kernel = {"stream_matcher": ["stream_matcher.match_stream"],
+                     "dict_lookup": ["dict_lookup.dict_lookup",
+                                     "dict_lookup.dict_count"]}
+        for kernel, names in by_kernel.items():
+            noted = sum(result[n]["calls"] for n in names)
+            if noted < got[kernel]:
+                raise AssertionError(
+                    f"dry run rank {rank}: {noted} calls of {kernel}'s "
+                    f"wrappers recorded, {got[kernel]} launches")
+        for name, r in result.items():
+            entry = held.setdefault(name, {"calls": [], "max_abs_err": 0})
+            entry["calls"].append(r["calls"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+            log(f"dry run rank {rank}: {r['calls']} calls of {name} made "
+                f"again on the card at the dry run's shapes, max abs err "
+                f"{r['max_abs_err']} against the plain version")
+    for name, entry in held.items():
+        if entry["max_abs_err"] != 0:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 "the dry run's shapes")
+    return launches, held
 
 
 def run_bench_quick() -> dict:
@@ -2772,8 +2606,6 @@ def main() -> int:
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--shard-rank"]:
-        return child_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--profile-probe"]:
         return profile_probe(sys.argv[2:3] == ["late"])
     setup_environment()
@@ -2907,17 +2739,20 @@ def main() -> int:
     sharded_launches = one["launches"]
     table_sharded = run_table_sharded(device, fixtures)
     t2 = time.perf_counter()
-    child_reports = run_child_ranks(one["answers"], one["files"],
-                                    ROOT / "build" / "ranks")
+    child_reports, emission_npz = run_child_ranks(
+        one["answers"], one["files"], ROOT / "build" / "ranks")
     t3 = time.perf_counter()
     run_launch_entry_points(fixtures / f"lineitem_{MAIN_ROWS}.parquet",
                             one["got"], card)
     t4 = time.perf_counter()
+    dryrun_launches, dryrun_held = run_dryrun()
+    t5 = time.perf_counter()
     run_bench_quick()
     log(f"front door and sharded paths: cli {t1 - t0:.1f} s, one rank "
         f"{t2 - t1:.1f} s, {SHARD_RANKS} child ranks {t3 - t2:.1f} s, the "
-        f"launch entry points {t4 - t3:.1f} s, the benchmark at --quick "
-        f"{time.perf_counter() - t4:.1f} s; launches: "
+        f"launch entry points {t4 - t3:.1f} s, the dry run {t5 - t4:.1f} s, "
+        f"the benchmark at --quick {time.perf_counter() - t5:.1f} s; "
+        "launches: "
         f"cli {cli_launches}, one rank at full width {sharded_launches}, at "
         f"{SHARD_ROWS} rows {one['launches_small']}")
     for name in ("stream_matcher", "dict_lookup"):
@@ -2938,7 +2773,7 @@ def main() -> int:
     k2.update(time_decode_lookup(
         lens_table, gidx, ops_per_s, prefix="emission",
         where="inside the emission decode of city at one rank"))
-    with np.load(ROOT / "build" / "ranks" / "rank.emission.npz") as z:
+    with np.load(emission_npz) as z:
         table4 = torch.from_numpy(z["table"]).to(device)
         gidx4 = torch.from_numpy(z["gidx"]).to(device)
     share = block // SHARD_RANKS
@@ -2972,6 +2807,9 @@ def main() -> int:
              one["launches_small"]["stream_matcher"],
          "launches_sharded_child_ranks": [
              r["launches"]["stream_matcher"] for r in child_reports],
+         "launches_dryrun_ranks": [r["stream_matcher"]
+                                   for r in dryrun_launches],
+         "dryrun_calls_held": dryrun_held["stream_matcher.match_stream"],
          "launches_per_query": {q: v["stream_matcher"]
                                 for q, v in per_query.items()}, **k1},
         {"name": "dict_lookup", "route": "cuda", "source": K2_SOURCE,
@@ -2983,12 +2821,18 @@ def main() -> int:
              one["launches_small"]["dict_lookup"],
          "launches_sharded_child_ranks": [
              r["launches"]["dict_lookup"] for r in child_reports],
+         "launches_dryrun_ranks": [r["dict_lookup"] for r in dryrun_launches],
+         "dryrun_calls_held": {
+             n: dryrun_held[f"dict_lookup.{n}"]
+             for n in ("dict_lookup", "dict_count")},
          "launches_per_query": {q: v["dict_lookup"]
                                 for q, v in per_query.items()}, **k2},
         {"name": "dfa_walk", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": table_launches["dfa_walk"],
          "launches_per_query": {"l_comment": table_per_query["dfa_walk"]},
-         "launches_sharded_one_rank": table_sharded["dfa_walk"], **k3},
+         "launches_sharded_one_rank": table_sharded["dfa_walk"],
+         "launches_dryrun_ranks": [r["dfa_walk"] for r in dryrun_launches],
+         **k3},
     ]
     torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,10 @@ from __future__ import annotations
 
 import contextlib
 import os
+import socket
+import subprocess
 import tempfile
+import time
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -155,6 +158,45 @@ def rank_device(device: str) -> str:
     return device
 
 
+def check_layout(n: int, device: str, backend: str, cards: int) -> None:
+    """Raises unless `n` ranks on `device` over `backend` can run where
+    `cards` CUDA devices are visible.  Nothing falls back."""
+    if n < 1:
+        raise ValueError(f"a group needs at least one rank, not {n}")
+    if device == "cuda" and cards == 0:
+        raise RuntimeError("no CUDA device: --device cuda needs a card "
+                           "(--device cpu runs the ranks on the CPU)")
+    if backend == "nccl" and device != "cuda":
+        raise ValueError("the nccl backend needs a card for every rank: "
+                         "use --backend gloo with --device cpu")
+    if backend == "nccl" and n > cards:
+        raise ValueError("NCCL refuses two ranks on one card: use --backend "
+                         f"gloo ({n} ranks, {cards} card(s))")
+
+
+def spawned_device(device: str, backend: str, rank: int) -> str:
+    """The device of rank `rank` of a group that one parent started (see
+    `run_processes`): the CPU, card `rank` under nccl, the cards in turn
+    under gloo."""
+    if device == "cpu":
+        return "cpu"
+    if backend == "nccl":
+        return f"cuda:{rank}"
+    return f"cuda:{rank % torch.cuda.device_count()}"
+
+
+def join_file_group(store: str, rank: int, size: int, device: str,
+                    backend: str) -> PagesMesh:
+    """This process as rank `rank` of `size` ranks that one parent started,
+    meeting at the file store `store`; returns its mesh, on the device
+    `spawned_device` gives it."""
+    device = spawned_device(device, backend, rank)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=size,
+                            timeout=GROUP_TIMEOUT)
+    return make_mesh(device, backend)
+
+
 def _stage(mesh: PagesMesh, x) -> torch.Tensor:
     """`x` where the backend's collectives take it: on the host under
     gloo (a CUDA shard is staged through the host here, in this one
@@ -223,3 +265,74 @@ def run_on_survivors(mesh: PagesMesh, live: list[int], fn):
         value = fn(sub)
         dist.destroy_process_group(sub.group)
     return broadcast_arrays(mesh, value, live[0])
+
+
+# ── rank processes started by one parent ─────────────────────────────────────
+
+
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on (for a `tcp://`
+    rendezvous or torchrun's MASTER_PORT)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@dataclass(frozen=True)
+class ProcessEnd:
+    """How one started process ended: its exit code (-9 when it was killed
+    for outliving its time), and what it printed."""
+
+    returncode: int
+    out: str
+    err: str
+
+
+def run_processes(argvs, timeout: float, *, cwd=None, env=None,
+                  grace: float | None = 30.0) -> list[ProcessEnd]:
+    """Starts one process an argv of `argvs`, all at once, and waits for
+    them: the ranks of one group, which must run together.  Their output
+    goes to files, not pipes (a rank blocked on a pipe nobody drains would
+    stall the collective the others wait in).  Once one exits non-zero the
+    others get `grace` seconds to end (every rank raises the same check;
+    None: processes that are not one group, which all run on); a process
+    still alive then, or at `timeout`, is killed.  `env` is one
+    environment for all, or a list of one a process.  Returns every
+    process's end, in the order of `argvs`."""
+    argvs = list(argvs)
+    envs = env if isinstance(env, list) else [env] * len(argvs)
+    with contextlib.ExitStack() as stack:
+        files = [(stack.enter_context(tempfile.TemporaryFile("w+")),
+                  stack.enter_context(tempfile.TemporaryFile("w+")))
+                 for _ in argvs]
+        procs = []
+        try:
+            for argv, e, (out, err) in zip(argvs, envs, files):
+                procs.append(subprocess.Popen(argv, cwd=cwd, env=e,
+                                              stdout=out, stderr=err,
+                                              text=True))
+            deadline = time.monotonic() + timeout
+            failed = False
+            while True:
+                # every process polled on each pass, so a failure is seen
+                # whichever rank it is
+                codes = [p.poll() for p in procs]
+                if None not in codes:
+                    break
+                if grace is not None and not failed and any(codes):
+                    failed = True
+                    deadline = min(deadline, time.monotonic() + grace)
+                if time.monotonic() >= deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ends = []
+        for p, (out, err) in zip(procs, files):
+            out.seek(0)
+            err.seek(0)
+            ends.append(ProcessEnd(p.returncode, out.read(), err.read()))
+        return ends

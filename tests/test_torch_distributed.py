@@ -9,15 +9,14 @@ One rank runs in this process (gloo, a group of one) against
 Pallas in interpret mode as its own tests run it.  This process computes
 the JAX answers and hands them to the children as an .npz.  The children
 meet through a file store under the test's temporary directory, run under
-a timeout and are killed when it runs out; a child's non-zero exit fails
-its cases with its stderr.
+a timeout and are killed when it runs out (`parallel/mesh.run_processes`);
+a child's non-zero exit fails its cases with its stderr.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -26,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 
+from duckdb_parquet_parser_tpu_torch.parallel.mesh import run_processes
 from tests import fixtures
 from tests import torch_dist_cases as cases
 from tests.torch_dist_worker import port_namespace
@@ -130,20 +130,13 @@ def _child_ranks(n: int, paths: dict, tmp: Path) -> dict:
                                "expected": str(expected), "out": str(out)}))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "torch_dist_worker.py"),
-         str(rank), str(n), str(tmp / f"store_{n}"), str(job)],
-        env=env, cwd=str(tmp), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for rank in range(n)]
-    try:
-        ends = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, (_out, err)) in enumerate(zip(procs, ends)):
-        assert p.returncode == 0, f"rank {rank} of {n} failed:\n{err[-4000:]}"
+    ends = run_processes(
+        [[sys.executable, str(ROOT / "tests" / "torch_dist_worker.py"),
+          str(rank), str(n), str(tmp / f"store_{n}"), str(job)]
+         for rank in range(n)], CHILD_TIMEOUT_S, cwd=str(tmp), env=env)
+    for rank, end in enumerate(ends):
+        assert end.returncode == 0, (f"rank {rank} of {n} failed:\n"
+                                     f"{end.err[-4000:]}")
     verdicts = [json.loads(Path(f"{out}.{rank}").read_text())
                 for rank in range(n)]
     assert all(v == verdicts[0] for v in verdicts), verdicts

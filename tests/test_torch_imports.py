@@ -4,8 +4,8 @@ port module imports, and a resident scan runs on the CPU over the port's
 own native library, built from `duckdb_parquet_parser_tpu_torch/host/native/`
 (a register-machine pattern and a table-DFA one); so do the decode entry
 points, `matching_rows` of both kinds of pattern, the command line,
-`ScanEngine.build_index`, a one-rank `distributed_scan` and two routes of
-the benchmark program."""
+`ScanEngine.build_index`, a one-rank `distributed_scan`, the dry run's
+first five sections and two routes of the benchmark program."""
 
 from __future__ import annotations
 
@@ -166,7 +166,13 @@ FRONT_DOOR_SCRIPT = BLOCK + textwrap.dedent("""
 
     import numpy as np
 
-    from duckdb_parquet_parser_tpu_torch import bench, cli, launch, scaling_bench
+    from duckdb_parquet_parser_tpu_torch import (
+        bench,
+        cli,
+        dryrun,
+        launch,
+        scaling_bench,
+    )
     from duckdb_parquet_parser_tpu_torch.host import bindings
     from duckdb_parquet_parser_tpu_torch.host.schema import ParquetType
     from duckdb_parquet_parser_tpu_torch.host.writer import (
@@ -221,6 +227,14 @@ FRONT_DOOR_SCRIPT = BLOCK + textwrap.dedent("""
     owned = sharded.build_index("s", 256)
     assert np.array_equal(owned.index.tuple_to_chunk, plain.tuple_to_chunk)
     assert len(owned.chunk_owners) == plain.num_chunks
+    # the dry run's sections 1-5 on one rank: section 5 fails its only
+    # rank, as the reference's does
+    try:
+        dryrun.dryrun_multichip(mesh)
+    except RuntimeError as e:
+        assert str(e) == "all devices failed", e
+    else:
+        raise AssertionError("the one-rank dry run passed section 5")
 
     # the benchmark's routes over fixtures that are not files
     bench.ROUNDS = 1
@@ -236,8 +250,10 @@ FRONT_DOOR_SCRIPT = BLOCK + textwrap.dedent("""
 
 def test_port_front_door_runs_without_jax(tmp_path):
     """`cli.main`, `ScanEngine.build_index` (plain and checkpointed), a
-    one-rank `distributed_scan` / `ScanEngine(mesh=...)` over gloo and the
-    benchmark's big-page and delta routes, with the JAX package blocked
+    one-rank `distributed_scan` / `ScanEngine(mesh=...)` over gloo, the
+    one-rank dry run (`dryrun.dryrun_multichip`, which must stop in its
+    section 5 as the reference's does) and the benchmark's big-page and
+    delta routes, with the JAX package blocked
     (tests/test_torch_bench.py runs the whole benchmark so)."""
     script = FRONT_DOOR_SCRIPT.format(
         root=str(ROOT), path=str(tmp_path / "s.parquet"),

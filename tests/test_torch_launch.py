@@ -15,75 +15,61 @@ import contextlib
 import json
 import os
 import re
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 
+from duckdb_parquet_parser_tpu_torch.parallel.mesh import (
+    free_port,
+    run_processes,
+)
 from tests import fixtures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 150
-# what a rendezvous prints when its port was taken between `_free_port` and
+# what a rendezvous prints when its port was taken between `free_port` and
 # the bind
 BIND_FAILED = re.compile(r"address already in use|EADDRINUSE", re.I)
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _launch_two(module: str, args: list[str], extra_env: dict) -> dict:
     """Runs `python -m <module> <args>` as two coordinated processes;
-    returns the JSON that process 0 printed last.  `_free_port` closes its
+    returns the JSON that process 0 printed last.  `free_port` closes its
     socket before the children bind it, so another process may take the
     port first: a pair whose rendezvous could not bind is started once more
     on a fresh port.  A failure shows both processes' stderr."""
     tries = []
     for _attempt in range(2):
-        procs, ends = _run_pair(module, args, extra_env, _free_port())
-        tries.append("\n".join(f"process {i} (rc={p.returncode}):\n"
-                               f"{err[-3000:]}"
-                               for i, (p, (_o, err)) in enumerate(
-                                   zip(procs, ends))))
-        if not any(p.returncode for p in procs):
+        ends = _run_pair(module, args, extra_env, free_port())
+        tries.append("\n".join(f"process {i} (rc={e.returncode}):\n"
+                               f"{e.err[-3000:]}"
+                               for i, e in enumerate(ends)))
+        if not any(e.returncode for e in ends):
             break
-        if not any(BIND_FAILED.search(err) for _o, err in ends):
+        if not any(BIND_FAILED.search(e.err) for e in ends):
             break
-    assert not any(p.returncode for p in procs), (
+    assert not any(e.returncode for e in ends), (
         f"{module} failed:\n" + "\n--- retried on a fresh port:\n".join(tries))
     # results print on process 0 only (gloo writes a connection banner)
-    assert not [ln for ln in ends[1][0].splitlines() if ln.startswith("{")]
-    return json.loads(ends[0][0].strip().splitlines()[-1])
+    assert not [ln for ln in ends[1].out.splitlines() if ln.startswith("{")]
+    return json.loads(ends[0].out.strip().splitlines()[-1])
 
 
 def _run_pair(module, args, extra_env, port):
     """The two processes of one rendezvous at `port`, run to their end (or
-    killed at TIMEOUT_S): (procs, [(stdout, stderr)])."""
-    procs = []
+    killed at TIMEOUT_S, or 30 s after one of them failed): their
+    `ProcessEnd`s."""
+    envs = []
     for pid in range(2):
         env = {k: v for k, v in os.environ.items()
                if k not in ("DPQ_SCALING_PLATFORM", "RANK", "WORLD_SIZE")}
         env.update(DPQ_COORDINATOR=f"127.0.0.1:{port}", DPQ_NUM_PROCESSES="2",
                    DPQ_PROCESS_ID=str(pid), PYTHONPATH=REPO,
                    OMP_NUM_THREADS="1", **extra_env)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", module] + args, env=env, cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    try:
-        ends = [p.communicate(timeout=TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return procs, ends
+        envs.append(env)
+    return run_processes([[sys.executable, "-m", module] + args] * 2,
+                         TIMEOUT_S, cwd=REPO, env=envs)
 
 
 def _port(args):

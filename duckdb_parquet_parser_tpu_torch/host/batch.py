@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import decode as _decode
+from ..utils.tracing import count
 from .schema import ParquetType
 
 _PER_PAGE_ARRAYS = [
@@ -48,7 +49,9 @@ def to_tensor(a: np.ndarray, device, rows=None, dtype=None) -> torch.Tensor:
     so they are copied before torch wraps them."""
     a = np.asarray(a)
     a = a.copy(order="C") if rows is None else a[rows]  # owned memory
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    a = np.ascontiguousarray(a, dtype=dtype)
+    count("h2d_bytes", a.nbytes)
+    return torch.from_numpy(a).to(device)
 
 
 @dataclass

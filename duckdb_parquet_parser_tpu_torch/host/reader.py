@@ -33,6 +33,7 @@ from .schema import (
     RawPage,
 )
 from ..ops import decode as _decode
+from ..utils.tracing import annotate
 
 
 def _decode_stat_value(raw: bytes, t: ParquetType):
@@ -371,6 +372,7 @@ class ParquetReader:
     everything but UNCOMPRESSED) and serves schema, pages, decoded
     columns, and device decode batches."""
 
+    @annotate("dpq.open")
     def __init__(self, path: str | None = None):
         self._h = None
         self._path: str | None = None
@@ -602,6 +604,7 @@ class ParquetReader:
 
     # ── device batches ──────────────────────────────────────────────────────
 
+    @annotate("dpq.prescan")
     def prescan(
         self,
         column: str | int,

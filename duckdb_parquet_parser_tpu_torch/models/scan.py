@@ -66,7 +66,7 @@ from ..parallel.pipeline import DistributedScanResult, distributed_scan
 from ..utils import checkpoints
 from ..utils.config import get_config
 from ..utils.metrics import get_metrics
-from ..utils.tracing import stage, trace_session
+from ..utils.tracing import count, front_door, stage, trace_session
 
 
 def _check_byte_array(reader: ParquetReader, column: str) -> None:
@@ -120,6 +120,7 @@ class _BlockWalker:
         steps = _scan.scan_steps(plen)
         rows = payload[:, :steps]                # the bytes the walk reads
         meta = np.stack([plen, nn]).astype(np.int32)
+        count("h2d_bytes", rows.nbytes + meta.nbytes)
         t0 = time.perf_counter()
         if self.cuda:
             slot = self._pinned(rows.size)
@@ -184,7 +185,7 @@ def _walk_batch(walker: _BlockWalker, batch, block_pages: int,
         if is_dict[lo:hi].all():
             walker.skip(hi - lo)
             continue
-        with stage("upload"):
+        with stage("dpq.upload"):
             walker.walk(arrays["payload"][lo:hi], plen[lo:hi], nn[lo:hi],
                         negate)
 
@@ -208,6 +209,7 @@ class ScanEngine:
         self.reader = ParquetReader(path)
         self.mesh = mesh
 
+    @front_door
     def scan(self, column: str, pattern: str, *, negate: bool = False,
              like: bool = False, engine: str | None = None, fleet=None,
              fault_hook=None,
@@ -293,6 +295,7 @@ class ScanEngine:
                          like=like, exact_counts=exact_counts,
                          stats_prune=stats_prune)
 
+    @front_door
     def scan_batched(self, column: str, pattern: str, *,
                      negate: bool = False, batch_pages: int = 16384,
                      device) -> PageMatchResult:
@@ -305,8 +308,7 @@ class ScanEngine:
         pats, dfas = _scan.prepare_patterns([pattern])
         irs, dfa = _scan.resolve_matchers(pats, dfas)
         with trace_session(get_config().profile_dir):
-            with get_metrics().timed("prescan", column=column) as box, \
-                    stage("prescan"):
+            with get_metrics().timed("prescan", column=column) as box:
                 batch = self.reader.prescan(column, pad_strings=8,
                                             flags=bindings.PS_PAYLOAD)
                 box["pages"] = batch.n_pages
@@ -323,13 +325,13 @@ class ScanEngine:
             walker = _BlockWalker(device, irs, dfa)
             with get_metrics().timed("scan_dispatch",
                                      batches=-(-n // bp)) as box, \
-                    stage("scan_dispatch"):
+                    stage("dpq.scan_dispatch"):
                 _walk_batch(walker, batch, bp, negate)
                 box["host_copy_seconds"] = walker.host_seconds
             is_dict = np.asarray(arrays["page_kind"]) == 1
             dict_counts = (_dict_page_counts(batch, dfas, negate, device)
                            if bool(is_dict.any()) else None)
-            with stage("collect"):
+            with stage("dpq.collect"):
                 counts = walker.collect()
                 if dict_counts is not None:
                     counts = np.where(is_dict, dict_counts.cpu().numpy(),
@@ -339,6 +341,7 @@ class ScanEngine:
             match_counts=counts.astype(np.int64),
             value_counts=arrays["page_nn"].astype(np.int64))
 
+    @front_door
     def scan_streaming(self, column: str, pattern: str, *,
                        negate: bool = False, block_pages: int | None = None,
                        device) -> PageMatchResult:
@@ -539,11 +542,13 @@ class ResidentColumn:
                                 value_counts=v[r].copy())
                 for r in range(len(pats))]
 
+    @front_door
     def scan(self, pattern: str, *, negate: bool = False,
              like: bool = False) -> PageMatchResult:
         pats, dfas = _scan.prepare_patterns([pattern], like=like)
         return self._scan_compiled(pats, dfas, negate)[0]
 
+    @front_door
     def scan_many(self, patterns: list[str], *, negate: bool = False,
                   like: bool = False) -> list[PageMatchResult]:
         """K patterns in ONE walk over the resident byte stream; a pattern

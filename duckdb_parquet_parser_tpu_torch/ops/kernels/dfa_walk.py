@@ -47,6 +47,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...utils.tracing import count
 from .. import strings
 from . import build
 from .stream_matcher import CHUNK, unchunk_stream
@@ -201,6 +202,7 @@ def _device_table(dfa, dev: torch.device):
     hit = _device_tables.get(key)
     if hit is None:
         packed = pack_table(dfa)
+        count("h2d_bytes", packed.data.nbytes)
         hit = (packed, torch.from_numpy(packed.data).to(dev))
         _device_tables[key] = hit
         while len(_device_tables) > 16:

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils.tracing import annotate, count, stage
+
 MAX_DFA_STATES = 4096
 
 
@@ -582,6 +584,7 @@ def like_to_regex(pattern: str) -> str:
     return "".join(out)
 
 
+@annotate("dpq.compile.minimize")
 def minimize_dfa(dfa: DFA) -> DFA:
     """DFA minimization by Moore partition refinement (vectorized: each round
     splits blocks by the signature (own block, blocks of all 256 successors)
@@ -617,10 +620,12 @@ def minimize_dfa(dfa: DFA) -> DFA:
     return DFA(table, accept, dfa.pattern)
 
 
+@annotate("dpq.compile")
 def compile_pattern(pattern: str, max_states: int | None = None) -> DFA:
     """Compile to a minimized search-semantics DFA (raises
     UnsupportedPattern).  The state budget defaults to
     EngineConfig.max_dfa_states (DPQ_MAX_DFA_STATES)."""
+    count("compiles")
     if max_states is None:
         from ..utils.config import get_config
 
@@ -667,60 +672,61 @@ def compile_pattern(pattern: str, max_states: int | None = None) -> DFA:
     if not anchored_end:
         nfa.link(accept, accept, ANY)  # implicit trailing .*
 
-    # epsilon closures
-    n = len(nfa.edges)
-    eps = [set() for _ in range(n)]
-    for s in range(n):
-        stack, seen = [s], {s}
-        while stack:
-            u = stack.pop()
-            for sym, v in nfa.edges[u]:
-                if sym is None and v not in seen:
-                    seen.add(v)
-                    stack.append(v)
-        eps[s] = seen
+    with stage("dpq.compile.subset"):
+        # epsilon closures
+        n = len(nfa.edges)
+        eps = [set() for _ in range(n)]
+        for s in range(n):
+            stack, seen = [s], {s}
+            while stack:
+                u = stack.pop()
+                for sym, v in nfa.edges[u]:
+                    if sym is None and v not in seen:
+                        seen.add(v)
+                        stack.append(v)
+            eps[s] = seen
 
-    def closure(states: frozenset) -> frozenset:
-        out: set[int] = set()
-        for s in states:
-            out |= eps[s]
-        return frozenset(out)
+        def closure(states: frozenset) -> frozenset:
+            out: set[int] = set()
+            for s in states:
+                out |= eps[s]
+            return frozenset(out)
 
-    start_set = closure(frozenset([start]))
-    ids = {start_set: 0}
-    table_rows: list[np.ndarray] = []
-    accepts: list[bool] = []
-    work = [start_set]
-    while work:
-        cur = work.pop(0)
-        sid = ids[cur]
-        while len(table_rows) <= sid:
-            table_rows.append(np.zeros(256, np.int32))
-            accepts.append(False)
-        accepts[sid] = accept in cur
-        # group targets per byte
-        targets: list[set[int]] = [set() for _ in range(256)]
-        for u in cur:
-            for sym, v in nfa.edges[u]:
-                if sym is None:
+        start_set = closure(frozenset([start]))
+        ids = {start_set: 0}
+        table_rows: list[np.ndarray] = []
+        accepts: list[bool] = []
+        work = [start_set]
+        while work:
+            cur = work.pop(0)
+            sid = ids[cur]
+            while len(table_rows) <= sid:
+                table_rows.append(np.zeros(256, np.int32))
+                accepts.append(False)
+            accepts[sid] = accept in cur
+            # group targets per byte
+            targets: list[set[int]] = [set() for _ in range(256)]
+            for u in cur:
+                for sym, v in nfa.edges[u]:
+                    if sym is None:
+                        continue
+                    for b in sym:
+                        targets[b].add(v)
+            row = np.zeros(256, np.int32)
+            cache: dict[frozenset, int] = {}
+            for b in range(256):
+                t = frozenset(targets[b])
+                if t in cache:
+                    row[b] = cache[t]
                     continue
-                for b in sym:
-                    targets[b].add(v)
-        row = np.zeros(256, np.int32)
-        cache: dict[frozenset, int] = {}
-        for b in range(256):
-            t = frozenset(targets[b])
-            if t in cache:
-                row[b] = cache[t]
-                continue
-            t_closed = closure(t)
-            if t_closed not in ids:
-                if len(ids) >= max_states:
-                    raise UnsupportedPattern("DFA state blow-up")
-                ids[t_closed] = len(ids)
-                work.append(t_closed)
-            row[b] = ids[t_closed]
-            cache[t] = row[b]
-        table_rows[sid] = row
+                t_closed = closure(t)
+                if t_closed not in ids:
+                    if len(ids) >= max_states:
+                        raise UnsupportedPattern("DFA state blow-up")
+                    ids[t_closed] = len(ids)
+                    work.append(t_closed)
+                row[b] = ids[t_closed]
+                cache[t] = row[b]
+            table_rows[sid] = row
 
     return minimize_dfa(DFA(np.stack(table_rows), np.array(accepts, bool), pattern))

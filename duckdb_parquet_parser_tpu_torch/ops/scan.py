@@ -30,6 +30,7 @@ import torch
 
 from ..host import bindings
 from ..host.batch import to_tensor
+from ..utils.tracing import annotate, stage
 from . import decode as _decode
 from . import strings
 from .kernels import dfa_walk, dict_lookup, stream_matcher
@@ -230,6 +231,7 @@ def scan_batch_fallback(batch, pattern: str, *,
                            participating)
 
 
+@annotate("dpq.split_plan")
 def split_payload_pages(arrays, trigger: int = SPLIT_TRIGGER,
                         target: int = SPLIT_TARGET):
     """Re-chunks big PLAIN pages at value boundaries (no matcher state
@@ -398,37 +400,41 @@ def resident_buckets(batch, device):
     nn = np.asarray(arrays["page_nn"])
     dev = torch.device(device)
     sp = split_payload_pages(arrays)
-    if sp is not None:
-        sub_payload, sub_len, sub_nn, seg_page = sp
-        steps = min(scan_steps(sub_len), sub_payload.shape[1])
-        plain_lane = ~is_dict[seg_page] & (sub_nn > 0)
-        return [dict(
-            idx=slice(None), steps=steps,
-            core=batch.to_device(dev, _decode.DECODE_ARRAYS),
-            stream=resident_stream(sub_payload, steps, dev),
-            walk_plen=to_tensor(np.where(plain_lane, sub_len, 0), dev,
-                                dtype=np.int32),
-            walk_nn=to_tensor(np.where(plain_lane, sub_nn, 0), dev,
-                              dtype=np.int32),
-            seg=to_tensor(seg_page, dev, dtype=np.int64),
-            has_plain=bool(plain_lane.any()),
-            has_dict=bool(is_dict.any()))], True
-    buckets = []
-    walk_plen = np.where(is_dict, 0, plen)
-    walk_nn = np.where(is_dict, 0, nn)
-    for idx, steps in length_buckets(walk_plen):
-        buckets.append(dict(
-            idx=idx, steps=steps,
-            core=batch.to_device(dev, _decode.DECODE_ARRAYS, rows=idx),
-            stream=resident_stream(arrays["payload"], steps, dev, rows=idx),
-            walk_plen=to_tensor(walk_plen, dev, rows=idx, dtype=np.int32),
-            walk_nn=to_tensor(walk_nn, dev, rows=idx, dtype=np.int32),
-            seg=None,
-            has_plain=bool((walk_nn[idx] > 0).any()),
-            has_dict=bool(is_dict[idx].any())))
-    return buckets, False
+    with stage("dpq.upload"):
+        if sp is not None:
+            sub_payload, sub_len, sub_nn, seg_page = sp
+            steps = min(scan_steps(sub_len), sub_payload.shape[1])
+            plain_lane = ~is_dict[seg_page] & (sub_nn > 0)
+            return [dict(
+                idx=slice(None), steps=steps,
+                core=batch.to_device(dev, _decode.DECODE_ARRAYS),
+                stream=resident_stream(sub_payload, steps, dev),
+                walk_plen=to_tensor(np.where(plain_lane, sub_len, 0), dev,
+                                    dtype=np.int32),
+                walk_nn=to_tensor(np.where(plain_lane, sub_nn, 0), dev,
+                                  dtype=np.int32),
+                seg=to_tensor(seg_page, dev, dtype=np.int64),
+                has_plain=bool(plain_lane.any()),
+                has_dict=bool(is_dict.any()))], True
+        buckets = []
+        walk_plen = np.where(is_dict, 0, plen)
+        walk_nn = np.where(is_dict, 0, nn)
+        for idx, steps in length_buckets(walk_plen):
+            buckets.append(dict(
+                idx=idx, steps=steps,
+                core=batch.to_device(dev, _decode.DECODE_ARRAYS, rows=idx),
+                stream=resident_stream(arrays["payload"], steps, dev,
+                                       rows=idx),
+                walk_plen=to_tensor(walk_plen, dev, rows=idx,
+                                    dtype=np.int32),
+                walk_nn=to_tensor(walk_nn, dev, rows=idx, dtype=np.int32),
+                seg=None,
+                has_plain=bool((walk_nn[idx] > 0).any()),
+                has_dict=bool(is_dict[idx].any())))
+        return buckets, False
 
 
+@annotate("dpq.step")
 def scan_buckets(batch, buckets, irs, dfa, dfas, negate: bool, device):
     """[K, N] match counts and [K, N] value counts (int64, on the host) of
     one walk over every bucket of `resident_buckets(batch, device)`: `irs`

@@ -193,9 +193,18 @@ def test_writers_give_identical_files_and_prescans(tmp_path):
     ref_bindings.lib().dpq_close(rh)
 
 
+def _is_span(decorator) -> bool:
+    """Whether a decorator is the port's span, `utils/tracing.annotate`."""
+    return (isinstance(decorator, ast.Call)
+            and isinstance(decorator.func, ast.Name)
+            and decorator.func.id == "annotate")
+
+
 def _functions(module) -> dict:
     """{qualified name: source dump without docstrings} of every function
-    and method a module defines."""
+    and method a module defines; the port's span decorators
+    (`utils/tracing.annotate`), which name a call in profiler timelines
+    and change nothing it does, are left out."""
     tree = ast.parse(inspect.getsource(module))
     out = {}
 
@@ -204,6 +213,8 @@ def _functions(module) -> dict:
             if isinstance(child, (ast.FunctionDef, ast.ClassDef)):
                 name = prefix + child.name
                 if isinstance(child, ast.FunctionDef):
+                    child.decorator_list = [d for d in child.decorator_list
+                                            if not _is_span(d)]
                     body = child.body
                     if (body and isinstance(body[0], ast.Expr)
                             and isinstance(body[0].value, ast.Constant)

@@ -584,40 +584,65 @@ def like_to_regex(pattern: str) -> str:
     return "".join(out)
 
 
+def _row_ids(rows: np.ndarray) -> tuple[np.ndarray, int]:
+    """Each row's id among the distinct rows of `rows` ([N, W]), numbered in
+    order of first appearance (rows keyed by their bytes in a dict), and the
+    number of distinct rows."""
+    rows = np.ascontiguousarray(rows)
+    width = rows.shape[1] * rows.itemsize
+    raw = rows.tobytes()
+    ids: dict[bytes, int] = {}
+    at = [ids.setdefault(raw[i * width : (i + 1) * width], len(ids))
+          for i in range(len(rows))]
+    return np.array(at, np.int32), len(ids)
+
+
+def _firsts(ids: np.ndarray) -> np.ndarray:
+    """The first index of each id, for ids numbered in order of first
+    appearance (each new id is one above the running maximum)."""
+    return np.flatnonzero(np.diff(np.maximum.accumulate(ids), prepend=-1))
+
+
+def _minimized(table: np.ndarray, accept: np.ndarray, class_of: np.ndarray,
+               pattern: str) -> DFA:
+    """Moore partition refinement over a class table ([S, C]: each state's
+    successor on each byte class), expanded through `class_of` ([256]) to
+    the [S, 256] table once at the end.  Each round splits blocks by the
+    signature (own block, blocks of the C successors) until a round splits
+    none: the coarsest stable partition.  Blocks are numbered in order of
+    first appearance over the states, so the start state's block is 0."""
+    part = accept.astype(np.int32)
+    n_blocks = 2 if accept.any() and not accept.all() else 1
+    while True:
+        part, new_blocks = _row_ids(
+            np.concatenate([part[:, None], part[table]], axis=1))
+        if new_blocks == n_blocks:
+            break
+        n_blocks = new_blocks
+    reps = _firsts(part)
+    return DFA(part[table[reps]][:, class_of].astype(np.int32), accept[reps],
+               pattern)
+
+
 @annotate("dpq.compile.minimize")
 def minimize_dfa(dfa: DFA) -> DFA:
-    """DFA minimization by Moore partition refinement (vectorized: each round
-    splits blocks by the signature (own block, blocks of all 256 successors)
-    via np.unique over rows).  Fewer states shrink the device matcher's
-    per-step select/matmul cost linearly."""
-    part = dfa.accept.astype(np.int64)
-    n_blocks = 2 if dfa.accept.any() and not dfa.accept.all() else 1
-    while True:
-        sig = np.concatenate([part[:, None], part[dfa.table]], axis=1)
-        _, new_part = np.unique(sig, axis=0, return_inverse=True)
-        new_blocks = int(new_part.max()) + 1
-        if new_blocks == n_blocks:
-            part = new_part
-            break
-        part, n_blocks = new_part, new_blocks
+    """DFA minimization by Moore partition refinement over the table's byte
+    classes (bytes whose columns are equal).  Fewer states shrink the device
+    matcher's per-step select/matmul cost linearly."""
+    class_of, _ = _row_ids(dfa.table.T)
+    return _minimized(dfa.table[:, _firsts(class_of)], dfa.accept, class_of,
+                      dfa.pattern)
 
-    # renumber so the start state's block is 0
-    remap = np.full(n_blocks, -1, np.int64)
-    order = [int(part[0])]
-    seen = {int(part[0])}
-    for b in part:
-        if int(b) not in seen:
-            seen.add(int(b))
-            order.append(int(b))
-    for new_id, old_id in enumerate(order):
-        remap[old_id] = new_id
-    part = remap[part]
 
-    reps = np.zeros(n_blocks, np.int64)
-    reps[part] = np.arange(len(part))  # any representative per block
-    table = part[dfa.table[reps]].astype(np.int32)
-    accept = dfa.accept[reps]
-    return DFA(table, accept, dfa.pattern)
+def _alphabet(sets: list[frozenset]) -> tuple[np.ndarray, np.ndarray]:
+    """Byte classes of an NFA's edge symbol sets: bytes that belong to exactly
+    the same sets share a class, numbered in order of their lowest byte.
+    Returns each byte's class ([256]) and each class's lowest byte."""
+    member = np.zeros((256, len(sets)), np.uint8)
+    for j, sym in enumerate(sets):
+        member[[b for b in sym if b < 256], j] = 1
+    class_of, _ = _row_ids(member)
+    return class_of, _firsts(class_of)
 
 
 @annotate("dpq.compile")
@@ -692,41 +717,46 @@ def compile_pattern(pattern: str, max_states: int | None = None) -> DFA:
                 out |= eps[s]
             return frozenset(out)
 
+        # the subset construction over the NFA's byte classes: classes are
+        # visited in order of their lowest byte, so new states are found (and
+        # numbered) in the order a loop over all 256 bytes finds them
+        sets = list(dict.fromkeys(sym for edges in nfa.edges
+                                  for sym, _ in edges if sym is not None))
+        class_of, lows = _alphabet(sets)
+        # a symbol above 255 (a pattern character past U+00FF) gets the class
+        # one past the last: a state that reaches its edge raises IndexError,
+        # as indexing the 256 bytes' target list did
+        classes = {sym: [c for c, lo in enumerate(lows.tolist()) if lo in sym]
+                   + ([len(lows)] if max(sym, default=0) > 255 else [])
+                   for sym in sets}
+        moves = [[(classes[sym], v) for sym, v in edges if sym is not None]
+                 for edges in nfa.edges]
         start_set = closure(frozenset([start]))
         ids = {start_set: 0}
-        table_rows: list[np.ndarray] = []
-        accepts: list[bool] = []
-        work = [start_set]
-        while work:
-            cur = work.pop(0)
-            sid = ids[cur]
-            while len(table_rows) <= sid:
-                table_rows.append(np.zeros(256, np.int32))
-                accepts.append(False)
-            accepts[sid] = accept in cur
-            # group targets per byte
-            targets: list[set[int]] = [set() for _ in range(256)]
+        dest: dict[frozenset, int] = {}  # target set -> state of its closure
+        rows: list[list[int]] = []
+        work = [start_set]  # FIFO: work[i] is state i
+        for cur in work:
+            targets: list[set[int]] = [set() for _ in lows]
             for u in cur:
-                for sym, v in nfa.edges[u]:
-                    if sym is None:
-                        continue
-                    for b in sym:
-                        targets[b].add(v)
-            row = np.zeros(256, np.int32)
-            cache: dict[frozenset, int] = {}
-            for b in range(256):
-                t = frozenset(targets[b])
-                if t in cache:
-                    row[b] = cache[t]
-                    continue
-                t_closed = closure(t)
-                if t_closed not in ids:
-                    if len(ids) >= max_states:
-                        raise UnsupportedPattern("DFA state blow-up")
-                    ids[t_closed] = len(ids)
-                    work.append(t_closed)
-                row[b] = ids[t_closed]
-                cache[t] = row[b]
-            table_rows[sid] = row
+                for cls, v in moves[u]:
+                    for c in cls:
+                        targets[c].add(v)
+            row = []
+            for t in map(frozenset, targets):
+                sid = dest.get(t)
+                if sid is None:
+                    t_closed = closure(t)
+                    sid = ids.get(t_closed)
+                    if sid is None:
+                        if len(ids) >= max_states:
+                            raise UnsupportedPattern("DFA state blow-up")
+                        sid = ids[t_closed] = len(ids)
+                        work.append(t_closed)
+                    dest[t] = sid
+                row.append(sid)
+            rows.append(row)
+        accepts = np.array([accept in s for s in work], bool)
 
-    return minimize_dfa(DFA(np.stack(table_rows), np.array(accepts, bool), pattern))
+    with stage("dpq.compile.minimize"):
+        return _minimized(np.array(rows, np.int32), accepts, class_of, pattern)

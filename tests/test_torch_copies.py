@@ -14,6 +14,8 @@ from __future__ import annotations
 import ast
 import enum
 import inspect
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from duckdb_parquet_parser_tpu.utils import config as ref_config
 from duckdb_parquet_parser_tpu_torch.host import bindings, build, schema, writer
 from duckdb_parquet_parser_tpu_torch.ops import bitprog, regex, strings
 from duckdb_parquet_parser_tpu_torch.utils import config
+from portbench.traffic import pool
 from tests import fixtures
 from tests.test_bitprog import SUPPORTED, UNSUPPORTED
 
@@ -42,6 +45,22 @@ CORPUS = list(dict.fromkeys(list(SUPPORTED) + list(UNSUPPORTED) + STREAM
                             + BENCH + DICT + ["([a-m])\\1*o", "a(b"]))
 LIKES = ["%al_ha%", "city_1%", "abc", "%", "_x%y_", "50\\%%", "a.b%"]
 CHAINS = [(b"ab",), (b"ab", b"q"), (b"abc", b"x", b"yz"), (b"qq", b"q")]
+# the benchmark's LIKEs (TPC-H Q13 on o_comment, Q2 / Q14 / Q16 on p_type) as
+# the resident route compiles them, two patterns whose subset construction
+# makes hundreds of states before minimization, and characters past U+00FF
+# on edges the subset construction reaches or not
+TRAFFIC = Path(__file__).resolve().parent.parent / "portbench" / "traffic"
+BENCH_LIKES = [regex.like_to_regex(q.like)
+               for mix in ("q13_notlike", "ptype_like")
+               for q in pool(json.loads((TRAFFIC / f"{mix}.json").read_text()))]
+COMPILED = list(dict.fromkeys(CORPUS + BENCH_LIKES
+                              + ["(a|b)*a(a|b){8}", "[a-z]*q[a-z]{8}",
+                                 "x\u20ac{0}", "(a|\u20ac){0}b", "a\u20ac",
+                                 "[a-\u20ac]", "\u00e9+"]))
+# states of the subset construction before minimization (the least
+# max_states that compiles)
+SUBSET_STATES = {"^.*special.*requests.*$": 41, "^STANDARD\\ ANODIZED.*$": 20,
+                 "a{40}": 81, "(ly )+requests": 23, "gr[ae]y|colou?r": 20}
 
 
 def _outcome(fn, *args):
@@ -53,7 +72,7 @@ def _outcome(fn, *args):
         return None, type(e).__name__
 
 
-@pytest.mark.parametrize("pattern", CORPUS)
+@pytest.mark.parametrize("pattern", COMPILED)
 def test_compile_pattern_tables_and_accepts_equal(pattern):
     got, got_err = _outcome(regex.compile_pattern, pattern)
     want, want_err = _outcome(ref_regex.compile_pattern, pattern)
@@ -63,6 +82,61 @@ def test_compile_pattern_tables_and_accepts_equal(pattern):
     np.testing.assert_array_equal(got.table, want.table)
     np.testing.assert_array_equal(got.accept, want.accept)
     assert got.table.dtype == want.table.dtype
+
+
+@pytest.mark.parametrize("offset", [-2, -1, 0, 1])
+@pytest.mark.parametrize("pattern", list(SUBSET_STATES))
+def test_compile_pattern_state_budget_equal(pattern, offset):
+    """Both packages give up on the same state budget, and below it, and
+    give equal tables above it."""
+    m = SUBSET_STATES[pattern] + offset
+    got, got_err = _outcome(regex.compile_pattern, pattern, m)
+    want, want_err = _outcome(ref_regex.compile_pattern, pattern, m)
+    assert want_err == (None if offset >= 0 else "UnsupportedPattern")
+    assert got_err == want_err
+    if want is not None:
+        np.testing.assert_array_equal(got.table, want.table)
+        np.testing.assert_array_equal(got.accept, want.accept)
+
+
+def _hand_dfa(case: str) -> tuple[np.ndarray, np.ndarray]:
+    """[S, 256] tables and accepts made by hand for minimize_dfa."""
+    rng = np.random.default_rng(17)
+    if case == "single":
+        return np.zeros((1, 256), np.int32), np.array([True])
+    if case == "equivalent":
+        # 0 -a-> 1 | 2 (equal rows), 1, 2 -b-> 3 (accepting, absorbing);
+        # 4 and 5 are unreachable copies of 1 and 3
+        table = np.zeros((6, 256), np.int32)
+        table[0, ord("a")], table[0, ord("c")] = 1, 2
+        table[[1, 2, 4], ord("b")] = 3
+        table[[3, 5], :] = [[3], [5]]
+        return table, np.array([False, False, False, True, False, True])
+    if case == "distinct_columns":  # 256 byte classes
+        s = 37
+        table = (np.arange(s)[:, None] * 7 + np.arange(256)[None, :]) % s
+        return table.astype(np.int32), np.arange(s) % 5 == 0
+    s = {"all_accepting": 12, "none_accepting": 12, "random": 60}[case]
+    cols = rng.integers(0, s, (s, 6)).astype(np.int32)  # 6 byte classes
+    table = cols[:, rng.integers(0, 6, 256)]
+    accept = {"all_accepting": np.ones(s, bool),
+              "none_accepting": np.zeros(s, bool),
+              "random": rng.random(s) < 0.2}[case]
+    return table, accept
+
+
+@pytest.mark.parametrize("case", ["single", "equivalent", "distinct_columns",
+                                  "all_accepting", "none_accepting",
+                                  "random"])
+def test_minimize_dfa_equal(case):
+    table, accept = _hand_dfa(case)
+    got = regex.minimize_dfa(regex.DFA(table, accept, case))
+    want = ref_regex.minimize_dfa(ref_regex.DFA(table, accept, case))
+    np.testing.assert_array_equal(got.table, want.table)
+    np.testing.assert_array_equal(got.accept, want.accept)
+    assert got.table.dtype == want.table.dtype
+    assert got.accept.dtype == want.accept.dtype
+    assert got.pattern == want.pattern
 
 
 @pytest.mark.parametrize("pattern", CORPUS)

@@ -9,13 +9,15 @@ are the pages it prunes (those with no match): the configuration's
 guarantee is an exact count for every data page.  The numbers compared,
 each with its limit:
 
-- `wrong_pages`: pages, over the kept answers, whose id, match count or
-  value count differs from the reference's (an answer of the wrong length
-  counts all its pages), limit 0;
-- `wrong_pruned`: pages, over the kept answers, pruned by one side and not
-  by the other (an answer of the wrong length counts all its pages),
+- `wrong_pages`: pages, over the kept answers, whose match count or value
+  count differs from the reference's (an answer whose page ids are not
+  the table's pages in file order, each once, counts all its pages),
   limit 0;
-- `wrong_answers`: kept answers with a wrong page, limit 0;
+- `wrong_pruned`: pages, over the kept answers, pruned by one side and not
+  by the other (such an answer again counts all its pages), limit 0;
+- `wrong_answers`: kept answers with a wrong page, or whose `totals` (an
+  answer that carries them: the sharded scan's all-reduced matches and
+  values) are not the sums of the reference's counts, limit 0;
 - `failed_ops`: queries of the window that raised, so never answered,
   limit 0.
 
@@ -71,15 +73,19 @@ def compare(table: Table, kept, failed_ops: int) -> dict:
         ref = want[q.like, q.negate]
         got = [np.asarray(ans.page_gid), np.asarray(ans.match_counts),
                np.asarray(ans.value_counts)]
-        if any(g.shape != w.shape for g, w in zip(got, ref)):
+        if any(g.shape != w.shape for g, w in zip(got, ref)) \
+                or (got[0] != ref[0]).any():
             bad = pruned = table.n_pages
         else:
             bad = int(np.any([g != w for g, w in zip(got, ref)],
                              axis=0).sum())
             pruned = int(((got[1] == 0) != (ref[1] == 0)).sum())
+        totals = getattr(ans, "totals", None)
+        off = totals is not None and list(np.asarray(totals).ravel()) \
+            != [int(ref[1].sum()), int(ref[2].sum())]
         wrong_pages += bad
         wrong_pruned += pruned
-        wrong_answers += bad > 0 or pruned > 0
+        wrong_answers += bad > 0 or pruned > 0 or off
     return {"wrong_pages": wrong_pages, "wrong_pruned": wrong_pruned,
             "wrong_answers": wrong_answers, "failed_ops": int(failed_ops),
             "answers_checked": len(kept), "patterns_checked": len(want)}

@@ -6,6 +6,8 @@ window.
   so that `setup_s` counts the interpreter's start and the imports too.
 - `card_present`: whether a CUDA card can be there, without loading
   PyTorch: no device nodes, or CUDA_VISIBLE_DEVICES set empty, says no;
+- `die_with_parent`: a child rank is killed when the rank 0 that started
+  it ends, however it ends;
 - `Reading`: over the window, this process's user and system CPU seconds
   (`getrusage`; its page faults and context switches, and /proc/stat's idle
   and steal ticks, read 0 on the GPU machine, so they are not taken).
@@ -13,8 +15,10 @@ window.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import resource
+import signal
 import time
 from pathlib import Path
 
@@ -39,6 +43,14 @@ def card_present() -> bool:
     if os.environ.get("CUDA_VISIBLE_DEVICES", None) == "":
         return False
     return any(Path("/dev").glob("nvidia[0-9]*"))
+
+
+PR_SET_PDEATHSIG = 1
+
+
+def die_with_parent() -> None:
+    """This process gets SIGKILL when its parent ends (PR_SET_PDEATHSIG)."""
+    ctypes.CDLL(None, use_errno=True).prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
 
 
 class Reading:

@@ -6,7 +6,7 @@ from portbench import spans
 
 LAYER = "resident upload"
 UNIT = "GB"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

@@ -5,7 +5,7 @@ window, over the scans."""
 
 LAYER = "resident upload"
 UNIT = "ms"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

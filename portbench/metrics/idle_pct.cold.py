@@ -3,7 +3,7 @@ kernels, copies and fills in the profile over the window, in %."""
 
 LAYER = "device"
 UNIT = "%"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

@@ -6,7 +6,7 @@ from portbench import roofline
 
 LAYER = "K1 stream matcher"
 UNIT = "%"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

@@ -6,7 +6,7 @@ from portbench import spans
 
 LAYER = "host layer"
 UNIT = "ms"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

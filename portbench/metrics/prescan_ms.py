@@ -5,7 +5,7 @@ over the scans."""
 
 LAYER = "host layer"
 UNIT = "ms"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

@@ -7,7 +7,7 @@ from portbench import spans
 
 LAYER = "resident upload"
 UNIT = "ms"
-MOVES = "scan_rows_per_s"
+MOVES = "device_peak_gb"
 
 
 def read(run):

@@ -8,20 +8,25 @@ the cell asks for.  Without them it exits with code 2 and prints no result.
 
 A run: make the cell's table from the seed, write it and flush it to disk
 (datagen.py, on a thread while PyTorch loads); load it into the route the
-traffic names and warm up every query of the pool (routes.py).  That is
-`setup_s`, from the process's start.
+traffic names and warm up every query of the pool (routes/<route>.py).
+That is `setup_s`, from the process's start.  A cell of more than one card
+runs one process a card (ranks.py): this process is rank 0, and starting
+the others and forming their group is set-up too.
 Then a closed loop of one client sends the traffic's queries in the seed's
 order for `--seconds`, the last query ending the window.  With `--trace 1`
 the window runs under the profiler and the span wrappers (trace.py), and the
 cell's per-layer metrics are read (metrics/<name>.py) in place of the
-end-to-end ones.  Once the window has closed and the device's peak memory is
+end-to-end ones; where a cell has more than one card, every rank runs the
+profiler, the metrics and the breakdown are rank 0's, and `busy_s` is the
+cards' mean.  Once the window has closed and the device's peak memory is
 read, the program's state is freed and the kept answers are held against the
 plain reference (check.py).  What the host did over the window goes to
 standard error, then the numbers compared, each beside its limit.
 
-The harness holds no name of a cell, configuration, mix or metric: each is
-found by its name in BENCHMARK.json, as configs/<config>.json,
-traffic/<traffic>.json and metrics/<metric>.py.
+The harness holds no name of a cell, configuration, mix, route or metric:
+each is found by its name in BENCHMARK.json or in the mix, as
+configs/<config>.json, traffic/<traffic>.json, routes/<route>.py and
+metrics/<metric>.py.
 """
 
 from __future__ import annotations
@@ -116,6 +121,7 @@ class Window:
         self.launches: dict[str, int] = {}
         self.setup_s = 0.0
         self.peak_bytes = 0
+        self.busy_s = 0.0
 
     @property
     def ops(self) -> int:
@@ -154,80 +160,123 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, *, seed: int,
     """One run of the cell on `device`; returns the result line's object.
     `t_start` is the process's start on the `time.perf_counter` clock;
     `marks` the (name, time) of set-up's steps so far; `table` a future of
-    `make_table(cfg, seed)` already started (made here otherwise)."""
+    `make_table(cfg, seed)` already started (made here otherwise).  Where
+    the cell's `chips` is over 1 this process is rank 0 of that many, one a
+    card from `device` on (ranks.py), meeting at the file named after the
+    cell under build/portbench/group/."""
     import torch
 
     from . import check, routes
     from . import traffic as traffic_gen
 
+    route_cls = routes.find(traffic["route"])
     marks = list(marks or [])
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    ranks = int(cell["chips"])
     if cuda:
         torch.cuda.set_device(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    marks.append(("device", time.perf_counter()))
-    table = make_table(cfg, seed) if table is None else table.result()
-    marks.append(("data", time.perf_counter()))
-    pool = traffic_gen.pool(traffic)
-    route = routes.ROUTES[traffic["route"]](cfg, table, seed, dev)
-    route.setup(pool)
-    if cuda:
-        torch.cuda.synchronize(dev)
-    marks.append(("warm", time.perf_counter()))
-    win = Window()
-    win.setup_s = time.perf_counter() - t_start
-    win.table = table
-    win.device_kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    print("set-up: " + ", ".join(
-        f"{name} {t - prev:.3f} s" for (name, t), prev in
-        zip(marks, [t_start] + [t for _n, t in marks])), file=sys.stderr)
+    with contextlib.ExitStack() as stack:
+        group = rank = None
+        if ranks > 1:
+            from .ranks import Group
+            group = stack.enter_context(Group(
+                ranks, dev, CACHE / "group" / cell["name"],
+                ["--workload", cell["name"], "--seed", str(seed),
+                 "--seconds", str(seconds), "--trace", str(int(trace))],
+                seconds))
+        marks.append(("device", time.perf_counter()))
+        table = make_table(cfg, seed) if table is None else table.result()
+        marks.append(("data", time.perf_counter()))
+        pool = traffic_gen.pool(traffic)
+        if group is None:
+            route = route_cls(cfg, table, seed, dev)
+        else:
+            rank = group.join()
+            route = route_cls(cfg, table, seed, dev, mesh=rank.mesh)
+            if hasattr(route, "prepare"):
+                route.prepare(pool)
+            # the others open the file and find the kernels once rank 0
+            # has made them
+            rank.share({"cfg": cfg, "traffic": traffic, "seed": seed,
+                        "table": str(table.path),
+                        "trace": str(CACHE / "trace" / f"{cell['name']}.json")})
+            marks.append(("group", time.perf_counter()))
+        route.setup(pool)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        if rank is not None:
+            rank.barrier()
+        marks.append(("warm", time.perf_counter()))
+        win = Window()
+        win.setup_s = time.perf_counter() - t_start
+        win.table = table
+        win.device_kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
+        print("set-up: " + ", ".join(
+            f"{name} {t - prev:.3f} s" for (name, t), prev in
+            zip(marks, [t_start] + [t for _n, t in marks])), file=sys.stderr)
 
-    sampler = check.Sampler(seed)
-    kept = []
-    queries = traffic_gen.draw(traffic, seed)
-    prof = None
-    if trace:
-        from . import trace as tracing
-        win.spans = tracing.Spans()
-        prof = tracing.profiler()
-        prof.start()
-    before = launch_counts()
-    reading = host.Reading()
-    t0 = time.perf_counter()
-    while True:
-        q = next(queries)
-        ts = time.perf_counter()
-        try:
-            with (torch.profiler.record_function("query") if trace
-                  else contextlib.nullcontext()):
-                ans = route.op(q)
-        except Exception as e:  # an answer that never comes
-            print(f"query {q.like!r} raised {type(e).__name__}: {e}",
-                  file=sys.stderr)
-            ans = None
-            win.failed += 1
-        te = time.perf_counter()
-        win.attempted += 1
-        win.ends.append(te - t0)
-        if ans is not None:
-            win.latencies.append(te - ts)
-            if sampler.keep(q):
-                kept.append((q, ans))
-        if te - t0 >= seconds:
-            break
-    win.seconds = te - t0
-    host_line = reading.close()
-    after = launch_counts()
-    win.launches = {k: after[k] - before[k] for k in after}
-    if trace:
-        prof.stop()
-        win.spans.close()
-        win.trace = tracing.read_profile(
-            prof, CACHE / "trace" / f"{cell['name']}.json")
-        del prof
-    if cuda:
-        win.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+        sampler = check.Sampler(seed)
+        kept = []
+        queries = traffic_gen.draw(traffic, seed)
+        agree = rank.agree if rank is not None else bool
+        prof = None
+        if trace:
+            from . import trace as tracing
+            win.spans = tracing.Spans()
+            prof = tracing.profiler()
+            prof.start()
+        before = launch_counts()
+        reading = host.Reading()
+        t0 = time.perf_counter()
+        go = True
+        # every rank makes the same calls: rank 0 says go or stop before
+        # each query
+        while agree(go):
+            q = next(queries)
+            ts = time.perf_counter()
+            try:
+                with (torch.profiler.record_function("query") if trace
+                      else contextlib.nullcontext()):
+                    ans = route.op(q)
+            except Exception as e:  # an answer that never comes
+                print(f"query {q.like!r} raised {type(e).__name__}: {e}",
+                      file=sys.stderr)
+                if rank is not None:
+                    raise  # the other ranks cannot leave the collective
+                ans = None
+                win.failed += 1
+            te = time.perf_counter()
+            win.attempted += 1
+            win.ends.append(te - t0)
+            if ans is not None:
+                win.latencies.append(te - ts)
+                if sampler.keep(q):
+                    kept.append((q, ans))
+            go = te - t0 < seconds
+        win.seconds = te - t0
+        host_line = reading.close()
+        after = launch_counts()
+        win.launches = {k: after[k] - before[k] for k in after}
+        if trace:
+            prof.stop()
+            win.spans.close()
+            win.trace = tracing.read_profile(
+                prof, CACHE / "trace" / f"{cell['name']}.json")
+            del prof
+            win.busy_s = win.trace.busy_seconds()
+        if cuda:
+            win.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+        if group is not None:
+            # the fullest card's peak; the cards' mean busy time
+            ends = rank.gather(win.peak_bytes, win.busy_s)
+            for r, (peak, busy) in enumerate(ends):
+                print(f"rank {r}: device peak {peak} bytes"
+                      + (f", busy {busy} s" if trace else ""), file=sys.stderr)
+            win.peak_bytes = max(peak for peak, _busy in ends)
+            win.busy_s = sum(busy for _peak, busy in ends) / len(ends)
+            group.close()
 
     values = {}
     for m in metrics:
@@ -239,11 +288,13 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, *, seed: int,
                    "memory_peak_bytes": win.peak_bytes}
     breakdown = None
     if trace:
-        device_info["busy_s"] = win.trace.busy_seconds()
+        device_info["busy_s"] = win.busy_s
         device_info["window_s"] = win.seconds
         breakdown = win.trace.breakdown()
 
     t_ref = time.perf_counter()
+    if hasattr(route, "answer"):
+        kept = [(q, route.answer(a)) for q, a in kept]
     # the program's state goes before the reference runs
     route.close()
     del route, ans
@@ -276,7 +327,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # a child rank of a cell of more than one card (ranks.py)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--ranks", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--rendezvous", help=argparse.SUPPRESS)
+    ap.add_argument("--device", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank:
+        host.die_with_parent()
+        set_cache_env()
+        from . import ranks
+        return ranks.child(args)
     marks = [("interpreter", time.perf_counter())]
     set_cache_env()
     bench = spec()

@@ -12,7 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from portbench import control, run, traffic
+from portbench import control, routes, run, traffic
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -124,8 +124,13 @@ def test_faults_of_the_timed_path_are_not_correct(tiny, monkeypatch, name,
                                                   fault):
     cell, cfg, mix = tiny(name)
     if fault is not None:
-        route = run_route(mix)
-        monkeypatch.setattr(route, "op", FAULTS[fault](route.op))
+        find = routes.find
+
+        def faulty(route_name):
+            route = find(route_name)
+            monkeypatch.setattr(route, "op", FAULTS[fault](route.op))
+            return route
+        monkeypatch.setattr(routes, "find", faulty)
     out = _sound(cell, cfg, mix)
     assert out["correct"] is (fault is None), out["checks"]
     assert list(out)[-1] == "checks"
@@ -135,9 +140,10 @@ def test_faults_of_the_timed_path_are_not_correct(tiny, monkeypatch, name,
                                  for c in out["checks"].values())
 
 
-def run_route(mix):
-    from portbench import routes
-    return routes.ROUTES[mix["route"]]
+def test_a_mix_that_names_a_route_with_no_file_ends_the_run(tiny):
+    cell, cfg, mix = tiny("orders_q13_resident")
+    with pytest.raises(SystemExit, match="no route 'no_such_route'"):
+        _sound(cell, cfg, dict(mix, route="no_such_route"))
 
 
 @pytest.mark.parametrize("name", ["orders_q13_resident", "part_type_resident"])

@@ -1,11 +1,11 @@
 """The one general traffic generator: reads a traffic mix (traffic/<name>.json)
 and yields its queries in a balanced rotation drawn from the seed.
 
-A mix names its `route` (routes.py), a closed loop of one client, and its
-templates.  Each template has `negate`, a LIKE string and the regular
-expression of the same predicate (for routes that take one), with {PARAM}
-slots and the values each slot takes; each combination of slot values is
-one query.  The templates alternate in the order the mix lists them, and
+A mix names its `route` (routes/<route>.py), a closed loop of one client,
+and its templates.  Each template has `negate`, a LIKE string and the
+regular expression of the same predicate (for routes that take one), with
+{PARAM} slots and the values each slot takes; each combination of slot
+values is one query.  The templates alternate in the order the mix lists them, and
 each template sends its queries in rounds: every round holds each of its
 queries once, in an order the seed permutes anew each round.  So every
 seed sends the same queries equally often (the uniform marginal of TPC-H's

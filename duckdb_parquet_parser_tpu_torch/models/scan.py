@@ -237,15 +237,19 @@ class ScanEngine:
                 column, pad_strings=8,
                 flags=bindings.PS_HOST_STRINGS | bindings.PS_PAYLOAD)
             n_dev = self.mesh.size
-            padded = pad_pages(
-                batch, n_dev * max(cfg.pages_per_shard_multiple, 1))
-            # byte-balanced shards: heaviest pages spread across ranks under
-            # the equal-count constraint (pad pages weigh 0)
-            weights = padded.arrays["page_payload_len"].astype(np.int64) + 16
-            weights = np.where(padded.arrays["page_num_values"] > 0, weights,
-                               0)
-            asg = assign_balanced_equal(weights, n_dev)
-            padded = reorder_pages(padded, asg.order)
+            with stage("dpq.shard_plan"):
+                padded = pad_pages(
+                    batch, n_dev * max(cfg.pages_per_shard_multiple, 1))
+                # byte-balanced shards: heaviest pages spread across ranks
+                # under the equal-count constraint (pad pages weigh 0)
+                weights = padded.arrays["page_payload_len"].astype(
+                    np.int64) + 16
+                weights = np.where(padded.arrays["page_num_values"] > 0,
+                                   weights, 0)
+                with stage("dpq.shard_plan.assign"):
+                    asg = assign_balanced_equal(weights, n_dev)
+                with stage("dpq.shard_plan.reorder"):
+                    padded = reorder_pages(padded, asg.order)
             if fault_hook is not None or fleet is not None:
                 # elastic path: detect failed ranks, re-run orphaned shards
                 # on the survivors, merge (parallel/elastic.py)

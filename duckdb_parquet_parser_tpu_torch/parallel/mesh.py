@@ -18,7 +18,9 @@ sharded one and not a second code path.
 
 Every rank holds the whole padded batch on the host, as every process of
 the reference does, and uploads only its own page rows; `to_global` is the
-result boundary, where every rank gets the whole array.
+result boundary, where every rank gets the whole array.  While a profiler
+records, `to_global` and `all_reduce_sum` are each a `dpq.exchange` span,
+from the staging to the copy back (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from datetime import timedelta
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.tracing import annotate, count
 
 BACKENDS = ("nccl", "gloo")
 # a collective that a lost rank never joins ends here and not at the
@@ -200,12 +204,15 @@ def join_file_group(store: str, rank: int, size: int, device: str,
 def _stage(mesh: PagesMesh, x) -> torch.Tensor:
     """`x` where the backend's collectives take it: on the host under
     gloo (a CUDA shard is staged through the host here, in this one
-    place), on the rank's card under nccl."""
+    place), on the rank's card under nccl.  Its bytes, this rank's part of
+    the collective, count as `exchange_bytes`."""
     t = torch.as_tensor(x)
     t = t.cpu() if mesh.backend == "gloo" else t.to(mesh.device)
+    count("exchange_bytes", t.numel() * t.element_size())
     return t.contiguous()
 
 
+@annotate("dpq.exchange")
 def to_global(mesh: PagesMesh, x) -> np.ndarray:
     """The result boundary of a sharded operation: every rank's shard `x`
     (equal shapes) concatenated along axis 0, in rank order, as a numpy
@@ -220,6 +227,7 @@ def to_global(mesh: PagesMesh, x) -> np.ndarray:
     return out.view(bool) if as_bool else out
 
 
+@annotate("dpq.exchange")
 def all_reduce_sum(mesh: PagesMesh, x) -> np.ndarray:
     """The sum of every rank's `x` (an integer tensor), on every rank."""
     t = _stage(mesh, x).clone()

@@ -70,8 +70,9 @@ for the dictionary gather, the one PyTorch call that computes the same;
 the gather's inputs at the emission decode's shapes are the tensors the
 index build itself passed to the wrapper, recorded in those runs.
 The script imports only the port (`duckdb_parquet_parser_tpu_torch`), which
-builds its own native host library and kernels from this checkout, and
-refuses any import of JAX or of the JAX package.
+builds its own native host library and kernels from this checkout, and the
+lanes at K1's chunk edges (`tests/page_edges.py`, NumPy alone, shared with
+the CPU tests), and refuses any import of JAX or of the JAX package.
 
 Usage: python3 chip_smoke.py      (needs one CUDA device; no arguments)
        (`--profile-probe [late]` is how it starts its fresh-process
@@ -214,13 +215,14 @@ FMA_PIPE = ("IMAD", "FFMA", "FMUL", "FADD")
 SLOT_ONLY = ("BRA", "BSSY", "BSYNC", "NOP")
 
 
-# The boundary control of a page walk (K1's, csrc/stream_matcher.cu.in, and
-# K3's, which copies it), one machine instruction each: {what: (count,
-# pipe)}.  "fma": an add, a move or a shift left by a constant, which the
-# multiply-add pipe can take (IMAD.IADD, IMAD.MOV, IMAD.SHL) beside the
-# int32 lanes; "int32": logic, compares, selects and right shifts.  The
-# loop's own upkeep is left out (a 16-byte chunk unrolled keeps one test a
-# byte: the lane's `done < nn`).
+# The boundary control of a bytewise page walk, run on every byte: K3's
+# yardstick (`stream_walk_bytewise`, csrc/dfa_walk.cu), and K1's walk until
+# K1 took its boundary control off the byte path; one machine instruction
+# each: {what: (count, pipe)}.  "fma": an add, a move or a shift left by a
+# constant, which the multiply-add pipe can take (IMAD.IADD, IMAD.MOV,
+# IMAD.SHL) beside the int32 lanes; "int32": logic, compares, selects and
+# right shifts.  The loop's own upkeep is left out (a 16-byte chunk unrolled
+# keeps one test a byte: the lane's `done < nn`).
 PAGE_CONTROL_OPS_PER_BYTE = {
     "take the byte out of the chunk": (1, "int32"),
     "prefix byte?, the prefix's end, a zero length": (3, "int32"),
@@ -233,6 +235,40 @@ PAGE_CONTROL_OPS_PER_BYTE = {
     "add it, count the value": (2, "fma"),
     "next prefix_left, ctr, state (two selects each)": (6, "int32"),
     "the lane's test done < nn": (1, "int32"),
+}
+
+
+# The work of K1's walk (csrc/stream_matcher.cu.in) beside the transition
+# its IR needs, one machine instruction each, as the template states it:
+# each byte of a chunk, walked unrolled ...
+K1_PAGE_OPS_PER_BYTE = {
+    "take the byte out of the chunk": (1, "int32"),
+    "the byte's bits of the chunk's two masks": (2, "int32"),
+}
+# ... for each state register, keep it inside a value and 0 outside (an AND
+# with the byte's mask); for each pattern, add its accept where the byte
+# ends a value ...
+K1_PAGE_OPS_PER_REGISTER = (1, "int32")
+K1_PAGE_OPS_PER_PATTERN = (1, "fma")
+# ... once a chunk: the chunk after next (its test and address) and the
+# test of the value's end against the chunk ...
+K1_PAGE_OPS_PER_CHUNK = {
+    "the chunk after next: its test and address": (3, "fma"),
+    "the value's end against the chunk": (1, "int32"),
+}
+# ... and once a value: its end (its bytes' and last byte's masks, its
+# count) and the next value's prefix (read from two chunks)
+K1_PAGE_OPS_PER_VALUE = {
+    "the value's bytes in the chunk as a mask, or it in": (5, "int32"),
+    "its last byte's bit, or it in": (2, "int32"),
+    "a zero length?, count the value": (2, "fma"),
+    "the lane's tests: nn values seen, the next prefix inside the walk": (
+        2, "int32"),
+    "take the 4-byte prefix out of two chunks (pick the words, shift)": (
+        3, "int32"),
+    "the value's first byte and end, the bytes left to the walk's end": (
+        3, "fma"),
+    "the value ends inside the walk": (1, "int32"),
 }
 
 
@@ -284,44 +320,56 @@ def ir_ops(irs) -> dict:
 
 
 def step_ops(irs) -> dict:
-    """The work of one byte step of the stream matcher's walk for the
-    pattern tuple `irs`.  The bound's count, `bound_ops`, is what the walk
-    needs: the IR's operations (`nodes` less those `fused` into a LOP3 with
-    their user, the `either_pipe` ones on either pipe; `ir_ops`), the page
-    walk's boundary control
-    (PAGE_CONTROL_OPS_PER_BYTE) and, a pattern beyond the first, its
-    accept's select and add; on the int32 lanes, or half of all where that
-    is more (`needed_ops`).  Beside it: `c_ops` (C operators of the emitted
-    byte loop: the operator tokens between the head of the loop and its
-    end, comments and preprocessor lines left out; a `?:` select counts
-    once, casts and assignments do not count) and, where the toolkit has a
-    disassembler, what the compiler made of the loop: `registers`,
-    `spill_bytes`, `instructions` (machine instructions of the byte loop)
-    and `int32_ops` (those the int32 lanes execute: all but the
-    multiply-add pipe's and the branches)."""
+    """The work of K1's walk for the pattern tuple `irs`: `per_byte`, what
+    a byte of a chunk needs (the IR's operations: `nodes` less those `fused`
+    into a LOP3 with their user, the `either_pipe` ones on either pipe;
+    `ir_ops`; then K1_PAGE_OPS_PER_BYTE, K1_PAGE_OPS_PER_REGISTER for each
+    state register and K1_PAGE_OPS_PER_PATTERN for each pattern),
+    `per_chunk` (K1_PAGE_OPS_PER_CHUNK) and `per_value`
+    (K1_PAGE_OPS_PER_VALUE), each on the int32 lanes, or half of all where
+    that is more (`needed_ops`).  Beside it: `c_ops` (C operators of a
+    byte's step in the emitted chunk walk: the operator tokens of the
+    unrolled loop's body, comments and preprocessor lines left out; a `?:`
+    select counts once, casts and assignments do not count) and, where the
+    toolkit has a disassembler, what the compiler made of the chunk loop
+    (the loop that holds the chunk's load): `registers`, `spill_bytes`,
+    `instructions` and `int32_ops` (those the int32 lanes execute: all but
+    the multiply-add pipe's and the branches), for its 16 byte steps and
+    its value boundaries together."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
         build,
         stream_matcher,
     )
 
     src = stream_matcher.render([irs], host=True)
-    body = src[src.index("for (int32_t j = 0;"):src.index("hits[0LL")]
+    body = src[src.index("for (int j = 0; j < 16; ++j) {"):
+               src.index("c0 += 16;")]
     code = "\n".join(ln.split("//")[0] for ln in body.splitlines()
                      if not ln.lstrip().startswith("#"))
     ir = ir_ops(irs)
-    needs = {"the IR's logic, compares and selects, LOP3-fused": (
-                 ir["nodes"] - ir["fused"] - ir["either_pipe"], "int32"),
-             "the IR's adds and constant shifts": (ir["either_pipe"], "fma"),
-             "select the other patterns' accepts": (len(irs) - 1, "int32"),
-             "add them": (len(irs) - 1, "fma"),
-             **PAGE_CONTROL_OPS_PER_BYTE}
-    out = {**ir, "c_ops": len(_C_OPERATOR.findall(code)),
-           "bound_ops": needed_ops(needs),
-           "counted": "operations the IR and the boundary control need"}
+    n_regs = sum(x.n_regs for x in irs)
+    per_byte = {"the IR's logic, compares and selects, LOP3-fused": (
+                    ir["nodes"] - ir["fused"] - ir["either_pipe"], "int32"),
+                "the IR's adds and constant shifts": (ir["either_pipe"],
+                                                      "fma"),
+                **K1_PAGE_OPS_PER_BYTE,
+                "keep each state register": (
+                    n_regs * K1_PAGE_OPS_PER_REGISTER[0],
+                    K1_PAGE_OPS_PER_REGISTER[1]),
+                "add each pattern's accept": (
+                    len(irs) * K1_PAGE_OPS_PER_PATTERN[0],
+                    K1_PAGE_OPS_PER_PATTERN[1])}
+    out = {**ir, "registers_of_state": n_regs,
+           "c_ops": len(_C_OPERATOR.findall(code)),
+           "per_byte": needed_ops(per_byte),
+           "per_chunk": needed_ops(K1_PAGE_OPS_PER_CHUNK),
+           "per_value": needed_ops(K1_PAGE_OPS_PER_VALUE),
+           "counted": "operations the IR needs a byte and the boundary "
+                      "control a byte, a chunk and a value"}
     if build.disassembler() is not None:
         (name, info), = [
             kv for kv in build.inspect_source(
-                stream_matcher.render([irs])).items()
+                stream_matcher.render([irs]), loop_containing="LDG").items()
             if f"dpq_stream_{stream_matcher.tag_of(irs)}" in kv[0]]
         loop = info["loop_instructions"]
         total = sum(loop.values())
@@ -397,6 +445,44 @@ def check_stream_kernel(device, n_pages=2000):
         if not (torch.equal(h1, h0) and torch.equal(s1, s0)):
             raise AssertionError(f"K1 disagrees with its plain version on {pats}")
     log(f"K1 vs plain: {len(cases)} cases over {n_pages} pages, exact")
+
+
+def check_stream_kernel_edges(device):
+    """K1 vs its plain version at the edges of its 16-byte chunks: every
+    lane of tests/page_edges.py's PAGE_EDGES (prefixes straddling two
+    chunks, values ending on byte 15, runs of zero-length values, values of
+    1-3 bytes several a chunk, `plen` and `nn` mid-chunk, bit-31 lengths,
+    empty lanes) in one launch, under each cut of `steps`, for a bitprog
+    pattern, a bitap chain and a fused tuple.  Exact equality."""
+    import numpy as np
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+    from tests.page_edges import (
+        K1_EDGE_WALKS,
+        PAGE_EDGE_STEPS,
+        PAGE_EDGES,
+        k1_edge_irs,
+        page_edge,
+    )
+
+    pm, plen, nn = page_edge(list(PAGE_EDGES))
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(device)
+    chunked = stream_matcher.chunk_stream(pt)
+    pl = torch.from_numpy(plen).to(device)
+    nv = torch.from_numpy(nn).to(device)
+    walks = {w: k1_edge_irs(w) for w in K1_EDGE_WALKS}
+    stream_matcher.prepare(list(walks.values()))
+    for walk, irs in walks.items():
+        for steps in PAGE_EDGE_STEPS:
+            h1, s1 = stream_matcher.match_stream(chunked, pl, nv, irs, steps)
+            h0, s0 = stream_matcher.match_stream_plain(pt, pl, nv, irs, steps)
+            if not (torch.equal(h1, h0) and torch.equal(s1, s0)):
+                raise AssertionError(f"K1 disagrees with its plain version at "
+                                     f"the chunk edges: {walk}, steps {steps}")
+    log(f"K1 vs plain at the chunk edges: {len(plen)} lanes of "
+        f"{len(PAGE_EDGES)} edges x {len(PAGE_EDGE_STEPS)} cuts of steps x "
+        f"{len(walks)} walks ({', '.join(walks)}), exact")
 
 
 def check_stream_kernel_split(col, device, n_pages=3000):
@@ -757,6 +843,7 @@ def time_kernels(col, dcol, device, ops_per_s):
     active = torch.where(bk["walk_nn"] > 0,
                          bk["walk_plen"].clamp(max=bk["steps"]), 0)
     walked = int(active.sum())
+    chunks = int(((active + 15) // 16).sum())
     k1 = None
     for pats in ([BENCH_PATTERNS[0]], [BENCH_PATTERNS[3]],
                  BENCH_PATTERNS[:3]):
@@ -764,24 +851,33 @@ def time_kernels(col, dcol, device, ops_per_s):
         args = (bk["walk_plen"], bk["walk_nn"], irs, bk["steps"])
         ms, (h1, s1) = timed(
             lambda: stream_matcher.match_stream(bk["stream"], *args), 20)
+        values = int(s1.sum())
         ops = step_ops(irs)
+        n_ops = (ops["per_byte"] * walked + ops["per_chunk"] * chunks
+                 + ops["per_value"] * values)
         n_bytes = walked + 8 * n + 4 * (len(irs) + 1) * n
-        b_ms, b_by = bound(n_bytes, ops["bound_ops"] * walked, ops_per_s)
+        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
         made = ("" if "instructions" not in ops else
-                f"; compiled to {ops['instructions']} machine instructions a "
-                f"step, {ops['int32_ops']} of them on the int32 lanes, "
-                f"{ops['registers']} registers, {ops['spill_bytes']} spill "
-                "bytes")
+                f"; the compiled chunk loop (16 byte steps and the value "
+                f"boundaries) is {ops['instructions']} machine instructions, "
+                f"{ops['int32_ops']} of them on the int32 lanes "
+                f"({ops['instructions'] / 16:.1f} / "
+                f"{ops['int32_ops'] / 16:.1f} a byte), {ops['registers']} "
+                f"registers, {ops['spill_bytes']} spill bytes")
         log(f"K1 {pats} at {tuple(bk['stream'].shape)} u8, K={len(irs)}: "
-            f"kernel {ms:.4f} ms per call; {walked} bytes walked; the walk "
-            f"needs {ops['bound_ops']:g} int32 operations a step "
-            f"({ops['nodes']} IR nodes, {ops['fused']} of them fused into a "
-            f"LOP3 with their user, {ops['either_pipe']} adds and constant "
-            "shifts that the multiply-add pipe may take, the boundary control "
-            f"{PAGE_CONTROL_OPS_PER_BYTE}); the emitted loop is "
-            f"{ops['c_ops']} C operators{made}; {n_bytes} bytes moved: bound "
-            f"{b_ms:.4f} ms by {b_by}; the bound is {100 * b_ms / ms:.1f}% "
-            "of the kernel's time")
+            f"kernel {ms:.4f} ms per call; {walked} bytes walked in {chunks} "
+            f"chunks, {values} values; the walk needs {ops['per_byte']:g} "
+            f"int32 operations a byte ({ops['nodes']} IR nodes, "
+            f"{ops['fused']} of them fused into a LOP3 with their user, "
+            f"{ops['either_pipe']} adds and constant shifts that the "
+            "multiply-add pipe may take, the byte's control "
+            f"{K1_PAGE_OPS_PER_BYTE}, {ops['registers_of_state']} state "
+            f"registers kept, {len(irs)} accepts added), "
+            f"{ops['per_chunk']:g} a chunk and {ops['per_value']:g} a value "
+            f"({K1_PAGE_OPS_PER_CHUNK}, {K1_PAGE_OPS_PER_VALUE}); the "
+            f"emitted byte step is {ops['c_ops']} C operators{made}; "
+            f"{n_bytes} bytes moved: bound {b_ms:.4f} ms by {b_by}; the "
+            f"bound is {100 * b_ms / ms:.1f}% of the kernel's time")
         if k1 is None:
             plain_ms, (h0, s0) = timed(
                 lambda: stream_matcher.match_stream_plain(plain_stream,
@@ -2637,6 +2733,7 @@ def main() -> int:
         "kernels, the table-DFA walk)")
 
     check_stream_kernel(device)
+    check_stream_kernel_edges(device)
     check_dict_kernel(device)
     report, launches, col, dcol, eng, deng = run_main_path(
         device, MAIN_ROWS, 100_000, 1500, ROOT / "build" / "fixtures")

@@ -10,16 +10,19 @@ sublane packing and are not ported.
 
 What bounds it on the H100: operations.  Each lane is a sequential walk
 whose per-byte cost is the dependent int32 chain of the transition (tens
-of operations) plus the boundary control, while every byte of the resident
-stream is read once.  So the design keeps every load out of that chain:
-the stream is resident in 16-byte chunks, `[chunks, n, 16]` u8
+of operations), while every byte of the resident stream is read once.  So
+the design keeps every load and the value-boundary control out of that
+chain: the stream is resident in 16-byte chunks, `[chunks, n, 16]` u8
 (`chunk_stream`), one thread per lane reads 16 bytes of its own lane in
-one load (a warp reads 512 neighbouring bytes), loads chunk i + 1 before
-it walks chunk i, and takes each step's byte out of registers by a shift.
-Every register machine lives in registers, the transitions are emitted as
-straight-line C from the traced IR (ops/bitprog.emit_c), and a lane exits
-at its first inactive byte (lanes arrive sorted by length, so a warp's
-lanes end together).
+one load (a warp reads 512 neighbouring bytes) and holds chunks i to i + 2
+in registers; the value boundaries of a chunk (accept, count, the next
+length prefix, the reset) are worked out once a value, as two masks of
+the chunk's bytes, and the chunk's 16 steps are unrolled, each the
+transition, an AND that keeps or resets the state and the accept where a
+value ends.  Every register machine lives in registers, the transitions
+are emitted as straight-line C from the traced IR (ops/bitprog.emit_c),
+and a lane stops after its last value that ends inside the walk (lanes
+arrive sorted by length, so a warp's lanes end together).
 
 The wrapper's contract: `match_stream` takes the chunked layout;
 `match_stream_plain` takes the [steps, n] stream; `chunk_stream` and
@@ -66,7 +69,7 @@ def _sections() -> dict[str, str]:
 def _walk(irs: tuple[TransitionIR, ...]) -> tuple[str, str]:
     """(tag, walk-section source with @TAG@ still open) for one pattern
     tuple; the tag hashes the rendered walk."""
-    decl, trans, hits, state, store = [], [], [], [], []
+    decl, trans, hits, empty, state, store = [], [], [], [], [], []
     reg = 0
     for k, ir in enumerate(irs):
         regs = [f"r{reg + j}" for j in range(ir.n_regs)]
@@ -74,9 +77,9 @@ def _walk(irs: tuple[TransitionIR, ...]) -> tuple[str, str]:
         reg += ir.n_regs
         decl += [f"int32_t {r} = 0;" for r in regs] + [f"int32_t h{k} = 0;"]
         trans.append(emit_c(ir, f"t{k}_", "c", regs, nxt, f"a{k}"))
-        hits.append(f"if (fin) h{k} += zero_len ? {ir.accept_empty} : a{k};")
-        state += [f"{r} = prefix_done ? 0 : (in_prefix ? {r} : {x});"
-                  for r, x in zip(regs, nxt)]
+        hits.append(f"h{k} += a{k};")
+        empty.append(f"h{k} += {ir.accept_empty};")
+        state += [f"{r} = {x} & keep;" for r, x in zip(regs, nxt)]
         store.append(f"hits[{k}LL * n + lane] = h{k};")
 
     def block(lines, indent):
@@ -86,9 +89,10 @@ def _walk(irs: tuple[TransitionIR, ...]) -> tuple[str, str]:
     body = (_sections()["walk"]
             .replace("@K@", str(len(irs)))
             .replace("@DECLARE@", block(decl, "    "))
-            .replace("@TRANSITION@", block(trans, " " * 12))
-            .replace("@HITS@", block(hits, " " * 12))
-            .replace("@STATE@", block(state, " " * 12))
+            .replace("@EMPTY@", block(empty, " " * 20))
+            .replace("@TRANSITION@", block(trans, " " * 16))
+            .replace("@STATE@", block(state, " " * 16))
+            .replace("@HITS@", block(hits, " " * 20))
             .replace("@STORE@", block(store, "    ")))
     tag = hashlib.sha1(body.encode()).hexdigest()[:12]
     return tag, body

@@ -5,6 +5,9 @@ Every bit-parallel pattern family of tests/test_bitprog.py, plus Shift-And
 chains, goes through (a) the IR evaluated in PyTorch and (b) the C that
 `emit_c` generates, inside the stream-matcher template, compiled for the
 host with g++ — so a codegen fault shows before any GPU time is spent.
+The emitted walk also runs at the edges of its 16-byte chunks
+(tests/page_edges.py, shared with K3's page walk), where its value-boundary
+control, once a value, meets prefixes, values and cuts of the walk.
 Tolerance 0: every output is an integer count.
 """
 
@@ -23,6 +26,8 @@ from duckdb_parquet_parser_tpu.ops.strings import match_payload_stream
 from duckdb_parquet_parser_tpu_torch.ops import bitprog as tb
 from duckdb_parquet_parser_tpu_torch.ops import strings as ts
 from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+from tests.page_edges import (K1_EDGE_WALKS, PAGE_EDGE_STEPS, PAGE_EDGES,
+                               k1_edge_irs, page_edge)
 from tests.test_bitprog import SUPPORTED, _pages
 
 CHAINS = [(b"ab",), (b"ab", b"q"), (b"abc", b"x", b"yz"), (b"qq", b"q"),
@@ -37,9 +42,10 @@ def pages():
     return pm, plen, nn, pt
 
 
-def _reference(pm, plen, nn, pattern=None, chain=None):
+def _reference(pm, plen, nn, pattern=None, chain=None, steps=None):
     prog = compile_bitprog(pattern) if pattern is not None else None
-    return match_payload_stream(np, pm, plen, nn, None, None, prog=prog,
+    return match_payload_stream(np, pm, plen, nn, None, None, steps,
+                                prog=prog,
                                 chain=list(chain) if chain else None)
 
 
@@ -72,7 +78,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("g++ is not installed")
     tuples = ([(tb.bitprog_ir(p),) for p in SUPPORTED]
               + [(ts.bitap_ir(c),) for c in CHAINS]
-              + [tuple(ts.pattern_ir(p) for p in FUSED)])
+              + [tuple(ts.pattern_ir(p) for p in FUSED)]
+              + [k1_edge_irs(walk) for walk in K1_EDGE_WALKS])
     d = tmp_path_factory.mktemp("walk")
     src, so = d / "walk.cpp", d / "walk.so"
     src.write_text(stream_matcher.render(tuples, host=True))
@@ -82,13 +89,15 @@ def host_lib(tmp_path_factory):
     return ctypes.CDLL(str(so))
 
 
-def _host_walk(lib, irs, pm, plen, nn):
+def _host_walk(lib, irs, pm, plen, nn, steps=None):
     """The g++ build of the kernel's walk, over the kernel's chunked
-    layout of the stream."""
-    steps, n = pm.shape[1], pm.shape[0]
+    layout of the stream, walking at most `steps` bytes (default: all)."""
+    n = pm.shape[0]
+    pitch = pm.shape[1]
     pt = stream_matcher.chunk_stream(
         torch.from_numpy(np.ascontiguousarray(pm.T))).numpy()
-    assert pt.shape == (-(-steps // 16), n, 16) and pt.flags.c_contiguous
+    assert pt.shape == (-(-pitch // 16), n, 16) and pt.flags.c_contiguous
+    steps = pitch if steps is None else steps
     hits = np.full((len(irs), n), -7, np.int32)
     seen = np.full(n, -7, np.int32)
     fn = getattr(lib, f"dpq_stream_host_{stream_matcher.tag_of(irs)}")
@@ -128,6 +137,31 @@ def test_emitted_fused_c_matches_numpy(host_lib, pages):
         h0, s0 = _reference(pm, plen, nn, p)
         np.testing.assert_array_equal(hits[k], h0, err_msg=p)
         np.testing.assert_array_equal(seen, s0)
+
+
+@pytest.mark.parametrize("walk", list(K1_EDGE_WALKS))
+@pytest.mark.parametrize("edge", list(PAGE_EDGES))
+def test_emitted_walk_chunk_edges(host_lib, edge, walk):
+    """The emitted walk at the edges of its chunks, under cuts of `steps`
+    that land in prefixes and in values: against the port's plain walk and
+    the JAX package's numpy walk, pattern by pattern."""
+    pm, plen, nn = page_edge([edge])
+    irs = k1_edge_irs(walk)
+    spec = K1_EDGE_WALKS[walk]
+    refs = ([{"chain": spec}] if walk == "bitap" else
+            [{"pattern": spec}] if walk == "bitprog" else
+            [{"pattern": p} for p in spec])
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T))
+    for steps in PAGE_EDGE_STEPS:
+        hits, seen = _host_walk(host_lib, irs, pm, plen, nn, steps)
+        h1, s1 = stream_matcher.match_stream_plain(
+            pt, torch.from_numpy(plen), torch.from_numpy(nn), irs, steps)
+        np.testing.assert_array_equal(hits, h1.numpy(), err_msg=f"{steps}")
+        np.testing.assert_array_equal(seen, s1.numpy(), err_msg=f"{steps}")
+        for k, ref in enumerate(refs):
+            h0, s0 = _reference(pm, plen, nn, steps=steps, **ref)
+            np.testing.assert_array_equal(hits[k], h0, err_msg=f"{ref} {steps}")
+            np.testing.assert_array_equal(seen, s0, err_msg=f"{steps}")
 
 
 def test_long_prefix_reaches_bit_31():

@@ -42,6 +42,8 @@ from duckdb_parquet_parser_tpu_torch.ops import strings
 from duckdb_parquet_parser_tpu_torch.ops.kernels import build, dfa_walk
 from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
 from duckdb_parquet_parser_tpu_torch.ops.regex import DFA, compile_pattern
+from tests.page_edges import PAGE_EDGE_STEPS, PAGE_EDGES
+from tests.page_edges import page_edge as _page_edge
 
 # patterns outside the register-machine family: the table DFA walks them
 TABLE_PATTERNS = ["(furiously|carefully) (express|regular)+ (deposits|requests)",
@@ -353,54 +355,8 @@ def test_host_page_walk_edges(host_lib, pattern):
     assert s0[2] == 0 and s0[6] == 1
 
 
-# The page walk's edges (csrc/dfa_walk.cu: a lane's 16-byte chunks walked
-# unrolled under a mask of the bytes inside the value; a boundary handled
-# once a value, its 4-byte prefix read from two chunks): {name: lanes}, a
-# lane (items, nn, plen) with None for the page's value count and length.
-# An item is a value (bytes, after its length prefix), a bare length prefix
-# (int) or raw bytes (bytearray).
-_TEXT = b"carefully express deposits ly requests slyly final bold " * 3
-
-
-def _w(n: int, at: int = 0) -> bytes:
-    return _TEXT[at:at + n]
-
-
-def _prefix_edge(k: int):
-    """Lanes whose length prefixes start at byte k of their chunks (one
-    straddles into the next chunk where k > 12)."""
-    return [([_w(k - 4)] + [_w(12, 27)] * 6, None, None),
-            ([_w(k - 4, 5)] + [_w(28)] * 3 + [_w(44, 10)], None, None),
-            ([_w(k - 4)] + [b""] * 3 + [_w(12, 27)], None, None)]
-
-
-PAGE_EDGES = {
-    **{f"prefix at byte {k}": _prefix_edge(k) for k in (12, 13, 14, 15)},
-    "value ends on byte 15": [
-        ([_w(12)] + [_w(12, 3)] * 5, None, None),
-        ([_w(28)] + [_w(28, 9)] * 2, None, None),
-        ([_w(12), b"", _w(8), b"", b""], None, None)],
-    "zero-length values across chunks": [
-        ([_w(6)] + [b""] * 8 + [_w(12, 27)], None, None),
-        ([b""] * 10 + [_w(20)], None, None),
-        ([_w(2)] + [b""] * 5, None, None)],
-    "plen in a prefix": [([_w(12), _w(28, 3), _w(20, 7)], None, pl)
-                         for pl in (16, 17, 18, 19, 49)],
-    "plen in a value": [([_w(12), _w(28, 3), _w(20, 7)], None, pl)
-                        for pl in (20, 30, 47, 48)],
-    "nn mid-chunk": [([_w(5), _w(3), _w(7), _w(12, 27)], nv, None)
-                     for nv in (1, 2, 3)],
-    "bit-31 length": [
-        ([_w(2), 0x80000005, bytearray(_w(33))], None, None),
-        ([_w(11), 0xFFFFFFFF, bytearray(_w(20))], None, None),
-        ([_w(11), 500, bytearray(_w(20))], None, None),
-        ([0x80000000, bytearray(_w(40))], None, None)],
-    "lanes with nn = 0 or plen = 0": [
-        ([_w(12, 27), _w(5)], 0, None), ([_w(12, 27)], 1, 0),
-        ([], 0, 0), ([_w(3)], 1, 3)],
-}
-# cuts of the walk at bytes inside prefixes and values of the edges
-PAGE_EDGE_STEPS = (None, 13, 16, 20, 31, 47)
+# The page walk's chunk edges (PAGE_EDGES, PAGE_EDGE_STEPS) are
+# tests/page_edges.py's, shared with K1's tests.
 # automata of the page edges: the folded table (the pattern's 44 states,
 # and ^$ and a random one whose empty string is accepted) and the packed
 # table of a random 300-state one
@@ -415,26 +371,6 @@ def _page_edge_dfa(name: str) -> DFA:
     accept = dfa.accept.copy()
     accept[0] = True
     return DFA(dfa.table, accept, name)
-
-
-def _page_edge(names) -> tuple:
-    """([n, pitch] u8, plen, nn) of the lanes of the edges `names`."""
-    pages, plens, nns = [], [], []
-    for name in names:
-        for items, nv, pl in PAGE_EDGES[name]:
-            page = b"".join(bytes(x) if isinstance(x, bytearray)
-                            else x.to_bytes(4, "little") if isinstance(x, int)
-                            else len(x).to_bytes(4, "little") + x
-                            for x in items)
-            pages.append(page)
-            plens.append(len(page) if pl is None else pl)
-            nns.append(sum(not isinstance(x, bytearray) for x in items)
-                       if nv is None else nv)
-    pm = np.zeros((len(pages), max(max(map(len, pages)) + 20, 64)),
-                  np.uint8)
-    for i, page in enumerate(pages):
-        pm[i, :len(page)] = np.frombuffer(page, np.uint8)
-    return pm, np.array(plens, np.int32), np.array(nns, np.int32)
 
 
 @pytest.mark.parametrize("dfa_name", PAGE_EDGE_DFAS)

@@ -14,6 +14,8 @@ import torch
 
 from duckdb_parquet_parser_tpu_torch.ops import strings as ts
 from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+from tests.page_edges import (K1_EDGE_WALKS, PAGE_EDGE_STEPS, PAGE_EDGES,
+                               k1_edge_irs, page_edge)
 from tests.test_bitprog import _pages
 
 PATTERNS = [
@@ -183,6 +185,25 @@ def test_kernel_matches_plain(cuda, patterns):
     torch.cuda.synchronize()
     assert stream_matcher.launches == before + 1
     assert torch.equal(h1, h0) and torch.equal(s1, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(K1_EDGE_WALKS))
+def test_kernel_chunk_edges_match_plain(cuda, walk):
+    """The kernel at the edges of its chunks (every lane of PAGE_EDGES in
+    one launch), under cuts of `steps` that land in prefixes and values."""
+    pm, plen, nn = page_edge(list(PAGE_EDGES))
+    irs = k1_edge_irs(walk)
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
+    pl, nv = torch.from_numpy(plen).to(cuda), torch.from_numpy(nn).to(cuda)
+    chunked = stream_matcher.chunk_stream(pt)
+    for steps in PAGE_EDGE_STEPS:
+        before = stream_matcher.launches
+        h1, s1 = stream_matcher.match_stream(chunked, pl, nv, irs, steps)
+        h0, s0 = stream_matcher.match_stream_plain(pt, pl, nv, irs, steps)
+        torch.cuda.synchronize()
+        assert stream_matcher.launches == before + 1
+        assert torch.equal(h1, h0) and torch.equal(s1, s0), steps
 
 
 @pytest.mark.cuda

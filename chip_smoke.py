@@ -22,25 +22,24 @@ their seed; and the block scans (`scan_batched`, `scan_streaming`), the
 row-level matches (`matching_rows`) and the fused single step
 (`single_chip_forward`) equal the native scan.
 Then the table-DFA path (kernel K3, for patterns outside the
-register-machine family): K3's page walk, and the bytewise walk it
-replaced, against the plain version on both resident l_comment buckets and
-its split layout (256-byte segments) for three such patterns and under
-random tables of 300 and 4,096 states (staged in shared memory / read from
-device memory), its per-value walk in every variant on l_comment's `str_padded`, city's
-`dict_padded` and 20 edge shapes of its blocks, grid and windows (rows
-1-300000, pitches 13-256,
-rows off 16-byte alignment); the resident queries (plain and negated),
+register-machine family): K3's page walk against the plain version on both
+resident l_comment buckets and its split layout (256-byte segments) for
+three such patterns and under random tables of 300 and 4,096 states (staged
+in shared memory / read from device memory), its per-value walk in every
+variant on l_comment's `str_padded`, city's `dict_padded` and 20 edge
+shapes of its blocks, grid and windows (rows 1-300000, pitches 13-256, rows
+off 16-byte alignment); the resident queries (plain and negated),
 `scan_streaming` and `matching_rows` against the native scan, with K3's
 launches counted and none of K1's; the pattern's host compiles
 (`ops/regex.compile_pattern`) in one resident query and in a first and a
 repeated `scan_streaming`, which must be 1, 1 and 0, with each call's ms
 and the card's name and power limit; a never-seen table-DFA pattern's first
-query, which builds nothing; K3 timed beside its plain version, its bound
-and the kernel each walk replaced, timed in turns (the page walk on both
-buckets and the split layout, its bound recounted from the operations it
-needs a byte and a value, the shared loads' floor beside it; the per-value
-walk with the 32-byte sectors the rows need); one warm query profiled with K3 and with
-the plain loop it replaced, and the K3 launches its profiles record.
+query, which builds nothing; K3 timed beside its plain version and its
+bound (the page walk on both buckets and the split layout, its bound
+recounted from the operations it needs a byte and a value, the shared
+loads' floor beside it; the per-value walk with the 32-byte sectors the
+rows need); one warm query profiled with K3 and with the plain loop it
+replaced, and the K3 launches its profiles record.
 Then the front door and the sharded paths: the command line (`cli.main`:
 file info, a regex scan on the card that prints what the native scan
 prints, `index ... l_comment` with its 18767 chunks); one rank over NCCL on
@@ -176,13 +175,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def int32_ops_per_s() -> tuple[float, str]:
     """The card's peak int32 rate: SMs x 64 lanes x the maximum SM clock
     that nvidia-smi reports, and a note of where the numbers came from."""
@@ -215,27 +207,6 @@ FMA_PIPE = ("IMAD", "FFMA", "FMUL", "FADD")
 SLOT_ONLY = ("BRA", "BSSY", "BSYNC", "NOP")
 
 
-# The boundary control of a bytewise page walk, run on every byte: K3's
-# yardstick (`stream_walk_bytewise`, csrc/dfa_walk.cu), and K1's walk until
-# K1 took its boundary control off the byte path; one machine instruction
-# each: {what: (count, pipe)}.  "fma": an add, a move or a shift left by a
-# constant, which the multiply-add pipe can take (IMAD.IADD, IMAD.MOV,
-# IMAD.SHL) beside the int32 lanes; "int32": logic, compares, selects and
-# right shifts.  The loop's own upkeep is left out (a 16-byte chunk unrolled
-# keeps one test a byte: the lane's `done < nn`).
-PAGE_CONTROL_OPS_PER_BYTE = {
-    "take the byte out of the chunk": (1, "int32"),
-    "prefix byte?, the prefix's end, a zero length": (3, "int32"),
-    "prefix_left - 1": (1, "fma"),
-    "shift amount 8 * (4 - prefix_left)": (1, "fma"),
-    "shift the length byte in, or it into ctr": (2, "int32"),
-    "the value's end, either end": (2, "int32"),
-    "ctr - 1": (1, "fma"),
-    "select the accept": (1, "int32"),
-    "add it, count the value": (2, "fma"),
-    "next prefix_left, ctr, state (two selects each)": (6, "int32"),
-    "the lane's test done < nn": (1, "int32"),
-}
 
 
 # The work of K1's walk (csrc/stream_matcher.cu.in) beside the transition
@@ -1532,14 +1503,14 @@ def check_value_edges(device):
 def check_table_kernels(col, eng, deng, device):
     """(a) K3's page walk against its plain version, bit for bit, in both
     variants (the table staged in shared memory, and read from device
-    memory) and in the one the wrapper picks, and the bytewise walk it
-    replaced, on both resident l_comment buckets and on its split layout
+    memory) and in the one the wrapper picks, on both resident l_comment
+    buckets and on its split layout
     (256-byte segments) for each table-DFA pattern, and on random pages
     under a random 300-state table of 256 byte classes (153,856 bytes,
     staged above 48 KB when forced) and a 4,096-state one (too large to
     stage: device memory only); (b) its per-value walk against its plain version, in every
-    variant, on l_comment's `str_padded` and city's `dict_padded` (the
-    row-wise yardstick too), under the random tables and at the edge shapes
+    variant, on l_comment's `str_padded` and city's `dict_padded`, under
+    the random tables and at the edge shapes
     of its blocks and windows (`check_value_edges`).  Returns the
     str_padded tensors, which (f) times."""
     import numpy as np
@@ -1572,18 +1543,11 @@ def check_table_kernels(col, eng, deng, device):
                     raise AssertionError(
                         f"K3 (staged={staged}) disagrees with its plain "
                         f"version on {pat!r}, {label}")
-            before = dfa_walk.launches
-            if (not all(map(torch.equal, dfa_walk.stream_walk_bytewise(
-                    stream, *args), (h0, s0)))
-                    or dfa_walk.launches != before):
-                raise AssertionError(f"the bytewise yardstick disagrees on "
-                                     f"{pat!r}, {label}, or counted a launch")
             log(f"K3 page walk vs plain on {pat!r} ({dfa.n_states} states, "
                 f"{dfa.byte_classes().n_classes} classes; the wrapper picks "
                 f"the {value_variant(dfa_walk.pack_table(dfa), False)}) over "
-                f"the l_comment {label}: both variants and the bytewise "
-                f"yardstick exact, {int(h1.sum())} hits ({plain_s:.1f} s for "
-                "the plain loop)")
+                f"the l_comment {label}: both variants exact, "
+                f"{int(h1.sum())} hits ({plain_s:.1f} s for the plain loop)")
         del plain_stream
     rng = np.random.default_rng(53)
     pm, plen, nn = random_pages(rng, 3000, 6, 40, alphabet=bytes(range(256)))
@@ -1646,13 +1610,10 @@ def check_table_kernels(col, eng, deng, device):
                     raise AssertionError(
                         f"K3's per-value walk (staged={staged}) disagrees "
                         f"with its plain version on {label}, {pat!r}")
-            if not torch.equal(dfa_walk.value_walk_rowwise(c, ln, dfa), v0):
-                raise AssertionError(f"the row-wise yardstick disagrees on "
-                                     f"{label}, {pat!r}")
         log(f"K3 per-value walk vs plain on {label} {tuple(c.shape)}: "
-            f"{len(pats)} patterns exact in every variant, and the row-wise "
-            f"yardstick (last: {int(v1.sum())} accepted, the wrapper picks "
-            f"the {value_variant(dfa_walk.pack_table(dfa))})")
+            f"{len(pats)} patterns exact in every variant (last: "
+            f"{int(v1.sum())} accepted, the wrapper picks the "
+            f"{value_variant(dfa_walk.pack_table(dfa))})")
     log(f"(prescans with pad_strings for the per-value walk: {prescan_ms:.1f} "
         "ms)")
     return str_chars, str_lens
@@ -1672,7 +1633,7 @@ def run_table_dfa_path(col, eng, device):
     import numpy as np
     import torch
 
-    from duckdb_parquet_parser_tpu_torch.bench import launches_of
+    from duckdb_parquet_parser_tpu_torch.bench import card_line, launches_of
     from duckdb_parquet_parser_tpu_torch.models import scan as models
     from duckdb_parquet_parser_tpu_torch.ops import scan
     from duckdb_parquet_parser_tpu_torch.ops.kernels import build
@@ -1807,14 +1768,6 @@ K3_PAGE_OPS_PER_VALUE = {
     "reset the state": (1, "fma"),
     "the masks of its first and last chunks": (4, "int32"),
 }
-# The bytewise walk's count, the bound before the redesign, kept so that the
-# history of the bound reads: each byte's transition, then the boundary
-# control it shares with K1 (PAGE_CONTROL_OPS_PER_BYTE).
-K3_BYTEWISE_OPS_PER_BYTE = {
-    "entry index state * n_classes + class": (1, "fma"),
-    "split the entry: next state, accept": (2, "int32"),
-    **PAGE_CONTROL_OPS_PER_BYTE,
-}
 K3_VALUE_OPS_PER_BYTE = {
     "take the byte out of the chunk": (1, "int32"),
     "the next entry's address, row + 4 * byte": (1, "fma"),
@@ -1887,12 +1840,10 @@ def value_stageable(dfa) -> bool:
 def time_page_walk(col, dfa, ops_per_s):
     """(f) K3's page walk under `dfa` at the main path's shapes: on both
     l_comment buckets and on the split layout (its pages cut into 256-byte
-    segments), per call and on the card alone, in turns with the bytewise
-    walk it replaced (the yardstick); on the larger bucket beside its plain
-    version and against its bound, counted from the operations the walk
-    needs a byte and a value (`K3_PAGE_OPS_PER_BYTE`,
-    `K3_PAGE_OPS_PER_VALUE`) and from the bytes it must read, and against
-    the bytewise walk's count (`K3_BYTEWISE_OPS_PER_BYTE`); the shared
+    segments), per call and on the card alone; on the larger bucket beside
+    its plain version and against its bound, counted from the operations
+    the walk needs a byte and a value (`K3_PAGE_OPS_PER_BYTE`,
+    `K3_PAGE_OPS_PER_VALUE`) and from the bytes it must read; the shared
     loads' floor and the compiled chunk loop beside them.  Returns (the
     kernels line's entry, the larger bucket)."""
     import torch
@@ -1913,24 +1864,15 @@ def time_page_walk(col, dfa, ops_per_s):
     big = f"bucket {list(bk['stream'].shape)}"
     timings = {}
     for label, (stream, pl, nv, steps) in layouts(col).items():
-        fns = {"kernel": lambda: dfa_walk.stream_walk(stream, pl, nv, dfa,
-                                                      steps),
-               "bytewise": lambda: dfa_walk.stream_walk_bytewise(
-                   stream, pl, nv, dfa, steps)}
-        t = best_of(fns, 20)
-        alone = {name: float("inf") for name in fns}
-        for _ in range(3):  # on the card alone, in turns
-            for name, fn in fns.items():
-                alone[name] = min(alone[name], queued_ms(fn, 20))
-        timings[label] = {"ms": t["kernel"], "device_ms": alone["kernel"],
-                          "bytewise_ms": t["bytewise"],
-                          "bytewise_device_ms": alone["bytewise"]}
+        def walk():
+            return dfa_walk.stream_walk(stream, pl, nv, dfa, steps)
+
+        ms = best_of({"kernel": walk}, 20)["kernel"]
+        alone = min(queued_ms(walk, 20) for _ in range(3))
+        timings[label] = {"ms": ms, "device_ms": alone}
         log(f"K3 page walk on {label} (n = {stream.shape[1]}, steps "
-            f"{steps}): {t['kernel']:.4f} ms per call, {alone['kernel']:.4f} "
-            f"ms on the card alone; the bytewise walk it replaced "
-            f"{t['bytewise']:.4f} ms per call, {alone['bytewise']:.4f} ms on "
-            f"the card alone (in turns): "
-            f"{alone['bytewise'] / alone['kernel']:.2f}x")
+            f"{steps}): {ms:.4f} ms per call, {alone:.4f} ms on the card "
+            "alone")
     args = (bk["walk_plen"], bk["walk_nn"], dfa, bk["steps"])
     plain_stream = stream_matcher.unchunk_stream(bk["stream"], bk["steps"])
     plain_ms, (h0, s0) = timed(
@@ -1949,14 +1891,11 @@ def time_page_walk(col, dfa, ops_per_s):
     n_bytes = walked + 16 * n + len(packed.data)
     b_ms, b_by = bound(n_bytes, per_byte * value_bytes + per_value * values,
                        ops_per_s)
-    old_per_byte = needed_ops(K3_BYTEWISE_OPS_PER_BYTE)
-    old_ms, _by = bound(n_bytes, old_per_byte * walked, ops_per_s)
     # one shared load a value byte and a value: 32 a clock an SM at best
     # (no two lanes of a warp on one bank), half the int32 lanes' rate
     loads = value_bytes + values
     lds_ms = loads / (ops_per_s / 2) * 1e3
     ops = loop_ops("dfa_stream_kernel", f"ILi{mode}E")
-    old_ops = loop_ops("dfa_stream_bytewise_kernel", "ILb1E")
     t = timings[big]
     run = -(-n // grid)  # a block's lanes, as csrc/dfa_walk.cu cuts them
     threads = min(1024, -(-run // 32) * 32)
@@ -1964,37 +1903,26 @@ def time_page_walk(col, dfa, ops_per_s):
         f"the wrapper's {dfa_walk.MODE_NAMES[mode]} ({staged_bytes} bytes "
         f"staged), grid {-(-n // threads)} blocks of {threads} threads (the "
         f"SMs hold {grid}): {t['ms']:.4f} ms per call, {t['device_ms']:.4f} ms "
-        f"on the card alone; the bytewise walk {t['bytewise_device_ms']:.4f} "
-        f"ms on the card alone; plain loop {plain_ms:.1f} ms; {walked} bytes "
+        f"on the card alone; plain loop {plain_ms:.1f} ms; {walked} bytes "
         f"walked, {values} values ({value_bytes} value bytes); the walk needs "
         f"{per_byte:g} int32 operations a value byte and {per_value:g} a value "
         f"({sum(k for k, _p in K3_PAGE_OPS_PER_BYTE.values())} and "
         f"{sum(k for k, _p in K3_PAGE_OPS_PER_VALUE.values())} in all: "
         f"{K3_PAGE_OPS_PER_BYTE}, {K3_PAGE_OPS_PER_VALUE}); {n_bytes} bytes "
         f"moved: bound {b_ms:.4f} ms by {b_by} "
-        f"({100 * b_ms / t['device_ms']:.1f}% of the time on the card; the "
-        f"bytewise walk's {100 * b_ms / t['bytewise_device_ms']:.1f}%); the "
-        f"bytewise walk's count ({old_per_byte:g} int32 operations a byte, "
-        f"its boundary control on every byte): {old_ms:.4f} ms, the "
-        f"bytewise walk's share "
-        f"{100 * old_ms / t['bytewise_device_ms']:.1f}%; this walk takes "
-        f"{t['device_ms'] / old_ms:.2f}x that time, which bounds only the "
-        f"bytewise walk); {loads} shared "
+        f"({100 * b_ms / t['device_ms']:.1f}% of the time on the card); "
+        f"{loads} shared "
         f"loads: {lds_ms:.4f} ms at 32 a clock an SM, no bank conflicts "
         f"({100 * lds_ms / t['device_ms']:.1f}%); the compiled chunk loop "
         f"(16 byte steps): {ops['instructions']} machine instructions "
         f"({ops['memory']} memory, {ops['int32_ops']} int32; "
         f"{ops['opcodes']}), {ops['registers']} registers, "
-        f"{ops['spill_bytes']} spill bytes; the bytewise byte loop "
-        f"{old_ops['instructions']} instructions, {old_ops['registers']} "
-        f"registers")
+        f"{ops['spill_bytes']} spill bytes")
     k3 = {"max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
           "library_ms": None, "shape": f"stream {list(bk['stream'].shape)}, "
           f"{walked} bytes walked, {values} values, {dfa.n_states} states",
-          "bytewise_ms": t["bytewise_ms"],
-          "bytewise_device_ms": t["bytewise_device_ms"],
-          "bound_ms_bytewise_count": old_ms, "ops_per_byte": per_byte,
+          "ops_per_byte": per_byte,
           "ops_per_value": per_value, "shared_load_floor_ms": lds_ms,
           "table_mode": dfa_walk.MODE_NAMES[mode], "grid": grid,
           "loop_instructions": ops["instructions"],
@@ -2006,9 +1934,8 @@ def time_page_walk(col, dfa, ops_per_s):
 def time_table_kernel(col, str_chars, str_lens, ops_per_s):
     """(f) K3 at the main path's shapes: the page walk (`time_page_walk`)
     and the per-value walk on l_comment's str_padded, each beside its
-    plain version and its yardstick, on the card alone and against its
-    bound; both variants under the pattern's table and a 153,856-byte
-    random one; then one warm query's wall time, launches and idle share
+    plain version, on the card alone and against its bound; both variants
+    under the pattern's table and a 153,856-byte random one; then one warm query's wall time, launches and idle share
     with K3 and, in the same run, with the plain loop."""
     import numpy as np
     import torch
@@ -2027,24 +1954,13 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
     def walk_value():
         return dfa_walk.value_walk(str_chars, str_lens, dfa)
 
-    def walk_rowwise():
-        return dfa_walk.value_walk_rowwise(str_chars, str_lens, dfa)
-
-    t = best_of({"kernel": walk_value, "rowwise": walk_rowwise,
+    t = best_of({"kernel": walk_value,
                  "plain": lambda: dfa_walk.value_walk_plain(str_chars,
                                                             str_lens, dfa)},
                 5)
     want = dfa_walk.value_walk_plain(str_chars, str_lens, dfa)
     err = int((walk_value() != want).sum())
-    if not torch.equal(walk_rowwise(), want):
-        raise AssertionError("the row-wise yardstick differs from the plain "
-                             "walk on str_padded")
-    # on the card alone, the two kernels in turns (kernel, row-wise, ...)
-    alone = {"kernel": float("inf"), "rowwise": float("inf")}
-    for _ in range(3):
-        for name, fn in (("kernel", walk_value), ("rowwise", walk_rowwise)):
-            alone[name] = min(alone[name], queued_ms(fn, 20))
-    on_card = alone["kernel"]
+    on_card = min(queued_ms(walk_value, 20) for _ in range(3))
     walked = int(str_lens.clamp(max=str_chars.shape[1]).sum())
     count = str_chars.shape[0]
     floor = fetch_floor(str_chars, str_lens)
@@ -2062,14 +1978,11 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
     log(f"K3 per-value walk {pat!r} on str_padded {tuple(str_chars.shape)}, "
         f"the wrapper's {dfa_walk.MODE_NAMES[mode]} ({nbytes} bytes "
         f"staged): {t['kernel']:.4f} ms per call, {on_card:.4f} ms on the "
-        f"card alone; the row-wise kernel it replaced {t['rowwise']:.4f} ms "
-        f"per call, {alone['rowwise']:.4f} ms on the card alone (timed in "
-        f"turns); plain {t['plain']:.4f} ms; {walked} bytes walked; the walk "
+        f"card alone; plain {t['plain']:.4f} ms; {walked} bytes walked; the walk "
         f"needs {v_per_byte:g} int32 operations a byte and "
         f"{K3_VALUE_OPS_PER_VALUE} a value; {n_bytes} bytes moved: bound "
         f"{v_ms:.4f} ms by {v_by} ({100 * v_ms / on_card:.1f}% of the time "
-        f"on the card; the row-wise kernel's "
-        f"{100 * v_ms / alone['rowwise']:.1f}%); the 32-byte sectors that "
+        f"on the card); the 32-byte sectors that "
         f"hold the walked bytes: {floor} bytes, {floor_ms:.4f} ms at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({100 * floor_ms / on_card:.1f}% "
         f"of the time on the card); the compiled window loop (64 bytes of "
@@ -2082,8 +1995,6 @@ def time_table_kernel(col, str_chars, str_lens, ops_per_s):
               values_device_ms=on_card, values_plain_ms=t["plain"],
               values_bound_ms=v_ms, values_bound_by=v_by,
               values_fetch_floor_bytes=floor, values_fetch_floor_ms=floor_ms,
-              values_rowwise_ms=t["rowwise"],
-              values_rowwise_device_ms=alone["rowwise"],
               values_variant=dfa_walk.MODE_NAMES[mode],
               values_loop_instructions=vops["instructions"],
               values_registers=vops["registers"],
@@ -2705,6 +2616,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--profile-probe"]:
         return profile_probe(sys.argv[2:3] == ["late"])
     setup_environment()
+    from duckdb_parquet_parser_tpu_torch.bench import (
+        build_host_library,
+        build_kernels,
+        card_line,
+        launch_counts,
+        launches_of,
+    )
+
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2712,13 +2631,6 @@ def main() -> int:
     log(f"peaks used for the bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s of "
         f"device memory; {ops_per_s / 1e12:.3f} T int32 operations/s = "
         f"{ops_note}")
-
-    from duckdb_parquet_parser_tpu_torch.bench import (
-        build_host_library,
-        build_kernels,
-        launch_counts,
-        launches_of,
-    )
 
     t0 = time.perf_counter()
     lib = build_host_library()

@@ -140,6 +140,7 @@ def bench_dir() -> Path:
 
 
 def card_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -47,10 +47,6 @@
 //    warps, so the table is staged once an SM and a warp's lanes stop
 //    together; past 1,024 lanes a block, its threads take every
 //    (grid x block)-th lane.
-// The one-thread-a-lane kernel this replaced (dfa_stream_bytewise_kernel:
-// 64-thread blocks, each byte's transition and K1's boundary control in a
-// byte loop) stays as the yardstick chip_smoke.py and
-// utils/probe_stream_walk.py time the new walk against; no route runs it.
 //
 // dpq_dfa_values (the per-value walk).  chars [L, P] u8, one row per value,
 // zero-padded; for j < min(len, P): state = T[state, chars[j]]; out =
@@ -127,68 +123,6 @@ static inline uint32_t dpq_class(const uint8_t* m, int32_t c) { return m[c]; }
 template <bool LDG>
 static inline uint32_t dpq_entry(const uint16_t* t, int32_t i) { return t[i]; }
 #endif
-
-// One lane of the bytewise page walk (the yardstick): each byte's
-// transition and boundary control in a byte loop.  pay: the [chunks, n, 16]
-// stream, chunks * 16 >= steps; cls / tab: the packed table's class map and
-// entries.
-template <bool LDG>
-__device__ __forceinline__ void dpq_bytewise_lane(
-    const uint8_t* __restrict__ pay, long long n, long long lane,
-    int32_t steps, int32_t pl, int32_t nv,
-    const uint8_t* __restrict__ cls, const uint16_t* __restrict__ tab,
-    int32_t n_classes, int32_t accept0,
-    int32_t* __restrict__ hits, int32_t* __restrict__ seen)
-{
-    int32_t prefix_left = 4, ctr = 0, done = 0, state = 0, h = 0;
-    const int32_t lim = pl < steps ? pl : steps;
-    const int32_t n_chunks = (lim + 15) >> 4;
-    dpq_chunk next = {0, 0};
-    if (n_chunks > 0 && nv > 0) next = dpq_load_chunk(pay + 16 * lane);
-    // A lane is active while b < plen and done < nn.  Both conditions only
-    // ever turn false, and an inactive byte changes no hit and no count,
-    // so the walk stops at the first inactive byte.
-    for (int32_t ch = 0; ch < n_chunks && done < nv; ++ch) {
-        uint64_t lo = next.lo, hi = next.hi;
-        if (ch + 1 < n_chunks)
-            next = dpq_load_chunk(pay + 16 * ((long long)(ch + 1) * n + lane));
-        const int32_t left = lim - (ch << 4);
-        const int32_t nb = left < 16 ? left : 16;
-#ifdef __CUDACC__
-#pragma unroll 1
-#endif
-        for (int32_t j = 0; j < nb && done < nv; ++j) {
-            const int32_t c = (int32_t)(lo & 0xffu);
-            lo = (lo >> 8) | (hi << 56);
-            hi >>= 8;
-            // the transition, taken on every byte: during a prefix byte its
-            // result is dropped and the state held
-            const uint32_t e = dpq_entry<LDG>(
-                tab, state * n_classes + (int32_t)dpq_class<LDG>(cls, c));
-            const int32_t nxt = (int32_t)(e & 0x7fffu);
-            const int32_t acc = (int32_t)(e >> 15);
-            const bool in_prefix = prefix_left > 0;
-            // prefix byte: accumulate the little-endian length (through
-            // uint32_t: the last byte reaches bit 31)
-            const int32_t la2 = ctr | (int32_t)((uint32_t)c
-                                                << ((8 * (4 - prefix_left)) & 31));
-            const int32_t pl2 = prefix_left - 1;
-            const bool prefix_done = in_prefix && pl2 == 0;
-            const bool zero_len = prefix_done && la2 == 0;
-            // value byte: count the bytes left down
-            const int32_t bl2 = (int32_t)((uint32_t)ctr - 1u);
-            const bool value_done = !in_prefix && bl2 == 0;
-            const bool fin = zero_len || value_done;
-            if (fin) h += zero_len ? accept0 : acc;
-            done += fin ? 1 : 0;
-            prefix_left = fin ? 4 : (in_prefix ? pl2 : prefix_left);
-            ctr = fin ? 0 : (in_prefix ? la2 : bl2);
-            state = prefix_done ? 0 : (in_prefix ? state : nxt);
-        }
-    }
-    hits[lane] = h;
-    seen[lane] = done;
-}
 
 // ── the per-value walk's pieces, shared by the kernel and the host build ──
 
@@ -578,8 +512,6 @@ namespace {
 // The page walk's block: at most 1,024 lanes, one block an SM (registers
 // capped at 64).
 constexpr int kPageThreads = 1024;
-constexpr int kBytewiseThreads = 64;  // the yardstick's 64-lane blocks
-constexpr int kRowwiseThreads = 128;
 // The per-value walk's block: registers capped at 64 (two blocks an SM),
 // so an SM holds 1,024 threads and 64 KB of windows on their way.
 // utils/probe_value_walk.py --sweep times other sizes.
@@ -651,29 +583,6 @@ __global__ void __launch_bounds__(kPageThreads, 1) dfa_stream_kernel(
                             start, n_classes, accept0, hits, seen);
 }
 
-// The page walk that dfa_stream_kernel replaced: one thread a lane in
-// blocks of 64, the packed table staged in each block (SHARED) or read from
-// device memory.  No route runs it: it stays as the yardstick.
-template <bool SHARED>
-__global__ void __launch_bounds__(kBytewiseThreads) dfa_stream_bytewise_kernel(
-    const uint8_t* __restrict__ pay, long long n, int32_t steps,
-    const int32_t* __restrict__ plen, const int32_t* __restrict__ nn,
-    const uint8_t* __restrict__ packed, int32_t words, int32_t n_classes,
-    int32_t accept0, int32_t* __restrict__ hits, int32_t* __restrict__ seen)
-{
-    extern __shared__ __align__(16) uint8_t smem[];
-    const uint8_t* table = packed;
-    if (SHARED) {
-        stage(smem, packed, words);
-        table = smem;
-    }
-    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    dpq_bytewise_lane<!SHARED>(pay, n, lane, steps, plen[lane], nn[lane],
-                               table, (const uint16_t*)(table + 256),
-                               n_classes, accept0, hits, seen);
-}
-
 // ── the per-value walk ──
 
 template <int MODE, int PIECE>
@@ -732,63 +641,6 @@ dfa_values_kernel(
         w = nw;
         lim = nlim;
     }
-}
-
-// The one-thread-a-value walk that dfa_values_kernel replaced: one thread
-// a value, 16 bytes a load where rows are aligned, byte by byte otherwise;
-// a block of 128 threads stages the table.  No route runs it: it stays as
-// the yardstick chip_smoke.py and probe_value_walk time the new kernel
-// against.
-template <bool SHARED>
-__global__ void __launch_bounds__(kRowwiseThreads) dfa_rowwise_kernel(
-    const uint8_t* __restrict__ chars, long long count, int32_t pitch,
-    const int32_t* __restrict__ lens, const uint8_t* __restrict__ packed,
-    int32_t words, int32_t n_classes, int32_t accept0, int wide,
-    uint8_t* __restrict__ out)
-{
-    extern __shared__ __align__(16) uint8_t smem[];
-    const uint8_t* table = packed;
-    if (SHARED) {
-        stage(smem, packed, words);
-        table = smem;
-    }
-    const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (v >= count) return;
-    const uint8_t* row = chars + v * pitch;
-    const int32_t len = lens[v];
-    const int32_t lim = len < pitch ? len : pitch;
-    const uint8_t* cls = table;
-    const uint16_t* tab = (const uint16_t*)(table + 256);
-    int32_t state = 0;
-    uint32_t acc = (uint32_t)accept0;
-    for (int32_t j0 = 0; j0 < lim; j0 += 16) {
-        const int32_t left = lim - j0;
-        const int32_t nb = left < 16 ? left : 16;
-        dpq_chunk ch = {0, 0};
-        if (wide) {
-            ch = dpq_load_chunk(row + j0);
-        } else {
-            for (int32_t k = 0; k < nb; ++k) {
-                const uint64_t b = __ldg(row + j0 + k);
-                if (k < 8)
-                    ch.lo |= b << (8 * k);
-                else
-                    ch.hi |= b << (8 * (k - 8));
-            }
-        }
-        uint64_t lo = ch.lo, hi = ch.hi;
-#pragma unroll 1
-        for (int32_t j = 0; j < nb; ++j) {
-            const int32_t c = (int32_t)(lo & 0xffu);
-            lo = (lo >> 8) | (hi << 56);
-            hi >>= 8;
-            const uint32_t e = dpq_entry<!SHARED>(
-                tab, state * n_classes + (int32_t)dpq_class<!SHARED>(cls, c));
-            state = (int32_t)(e & 0x7fffu);
-            acc = e >> 15;
-        }
-    }
-    out[v] = (uint8_t)acc;
 }
 
 // The dynamic shared memory of `kernel`, raised past the 48 KB default
@@ -960,38 +812,6 @@ extern "C" int dpq_dfa_stream(
     return (int)cudaGetLastError();
 }
 
-// The bytewise yardstick (dfa_stream_bytewise_kernel), as it was launched:
-// 64 lanes a block, the packed table staged when `use_shared`.
-extern "C" int dpq_dfa_stream_bytewise(
-    const void* pay, long long n, int steps, const void* plen, const void* nn,
-    const void* packed, int packed_bytes, int n_classes, int accept0,
-    int use_shared, void* hits, void* seen, void* stream)
-{
-    const unsigned blocks =
-        (unsigned)((n + kBytewiseThreads - 1) / kBytewiseThreads);
-    const int words = packed_bytes / 16;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (use_shared) {
-        const cudaError_t rc = shared_bytes(dfa_stream_bytewise_kernel<true>,
-                                            packed_bytes);
-        if (rc != cudaSuccess) {
-            cudaGetLastError();  // clear it: it is reported here
-            return (int)rc;
-        }
-        dfa_stream_bytewise_kernel<true>
-            <<<blocks, kBytewiseThreads, packed_bytes, s>>>(
-                (const uint8_t*)pay, n, steps, (const int32_t*)plen,
-                (const int32_t*)nn, (const uint8_t*)packed, words, n_classes,
-                accept0, (int32_t*)hits, (int32_t*)seen);
-    } else {
-        dfa_stream_bytewise_kernel<false><<<blocks, kBytewiseThreads, 0, s>>>(
-            (const uint8_t*)pay, n, steps, (const int32_t*)plen,
-            (const int32_t*)nn, (const uint8_t*)packed, words, n_classes,
-            accept0, (int32_t*)hits, (int32_t*)seen);
-    }
-    return (int)cudaGetLastError();
-}
-
 // chars: [count, pitch] u8; lens: [count] int32; out: [count] u8 (0 / 1);
 // packed: the packed table of `n_states` states; mode: DPQ_FOLDED (needs
 // n_states <= DPQ_FOLD_MAX_STATES), DPQ_PACKED_SHARED or DPQ_PACKED_GLOBAL;
@@ -1025,38 +845,6 @@ extern "C" int dpq_dfa_values(
     if (rc != cudaSuccess) {
         cudaGetLastError();  // clear it: it is reported here
         return (int)rc;
-    }
-    return (int)cudaGetLastError();
-}
-
-// The one-thread-a-row yardstick (dfa_rowwise_kernel), as it was launched:
-// one thread a value, the table staged when `use_shared`.
-extern "C" int dpq_dfa_values_rowwise(
-    const void* chars, long long count, int pitch, const void* lens,
-    const void* packed, int packed_bytes, int n_classes, int accept0,
-    int use_shared, void* out, void* stream)
-{
-    const unsigned blocks =
-        (unsigned)((count + kRowwiseThreads - 1) / kRowwiseThreads);
-    const int words = packed_bytes / 16;
-    const int wide = pitch % 16 == 0 && (uintptr_t)chars % 16 == 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (use_shared) {
-        const cudaError_t rc = shared_bytes(dfa_rowwise_kernel<true>,
-                                            packed_bytes);
-        if (rc != cudaSuccess) {
-            cudaGetLastError();
-            return (int)rc;
-        }
-        dfa_rowwise_kernel<true><<<blocks, kRowwiseThreads, packed_bytes, s>>>(
-            (const uint8_t*)chars, count, pitch, (const int32_t*)lens,
-            (const uint8_t*)packed, words, n_classes, accept0, wide,
-            (uint8_t*)out);
-    } else {
-        dfa_rowwise_kernel<false><<<blocks, kRowwiseThreads, 0, s>>>(
-            (const uint8_t*)chars, count, pitch, (const int32_t*)lens,
-            (const uint8_t*)packed, words, n_classes, accept0, wide,
-            (uint8_t*)out);
     }
     return (int)cudaGetLastError();
 }
@@ -1103,18 +891,6 @@ extern "C" void dpq_dfa_stream_host(
                                   (const uint8_t*)fold, 0, n_classes, accept0,
                                   hits, seen);
     free(fold);
-}
-
-// The bytewise yardstick's lane walk.
-extern "C" void dpq_dfa_stream_bytewise_host(
-    const uint8_t* pay, long long n, int steps, const int32_t* plen,
-    const int32_t* nn, const uint8_t* packed, int n_classes, int accept0,
-    int32_t* hits, int32_t* seen)
-{
-    for (long long lane = 0; lane < n; ++lane)
-        dpq_bytewise_lane<false>(pay, n, lane, steps, plen[lane], nn[lane],
-                                 packed, (const uint16_t*)(packed + 256),
-                                 n_classes, accept0, hits, seen);
 }
 
 template <int MODE, int PIECE>

@@ -78,12 +78,13 @@ def _check_byte_array(reader: ParquetReader, column: str) -> None:
 
 
 class _BlockWalker:
-    """Ships page blocks to a device and walks them there: on CUDA a
-    block's payload rows go through one of two pinned host buffers and a
-    side stream, so the copy of block i + 1 overlaps the walk of block i on
-    the current stream; the device lays the rows out in the stream
-    matcher's chunked layout.  Results stay on the device until `collect`;
-    `host_seconds` sums the host's copies into the block buffers."""
+    """Ships page blocks to a device and counts them there with
+    `ops/scan.device_scan_step`: on CUDA a block's payload rows go through
+    one of two pinned host buffers and a side stream, so the copy of block
+    i + 1 overlaps the step of block i on the current stream; the device
+    lays the rows out in the stream matcher's chunked layout.  Counts stay
+    on the device until `collect`; `host_seconds` sums the host's copies
+    into the block buffers."""
 
     def __init__(self, device, irs, dfa):
         self.device = torch.device(device)
@@ -112,11 +113,10 @@ class _BlockWalker:
                                       pin_memory=True)
         return slot
 
-    def walk(self, payload: np.ndarray, plen: np.ndarray, nn: np.ndarray,
-             negate: bool) -> None:
-        """Queues the walk of one block: payload [n, pitch] u8 rows, plen /
-        nn [n] (zero on lanes that must not walk)."""
-        n = payload.shape[0]
+    def _ship(self, payload: np.ndarray, plen: np.ndarray, nn: np.ndarray):
+        """(stream, plen, nn, steps) of one block's walk on the device, from
+        payload [n, pitch] u8 rows and plen / nn [n] (zero on lanes that
+        must not walk)."""
         steps = _scan.scan_steps(plen)
         rows = payload[:, :steps]                # the bytes the walk reads
         meta = np.stack([plen, nn]).astype(np.int32)
@@ -142,52 +142,52 @@ class _BlockWalker:
         # the stream matcher's chunked layout, made on the device as the
         # resident column makes it
         stream = stream_matcher.chunk_stream(raw.t())
-        hits = _scan.walk_hits(stream, meta_d[0], meta_d[1], self.irs,
-                               self.dfa, steps)[0]
-        self.pending.append((meta_d[1] - hits) if negate else hits)
+        return stream, meta_d[0], meta_d[1], steps
 
-    def skip(self, n: int) -> None:
-        """Queues `n` lanes that need no walk (a block of dictionary pages
-        only): zero counts, no copy and no launch."""
-        self.pending.append(torch.zeros(n, dtype=torch.int32,
-                                        device=self.device))
+    def step(self, batch, lo: int, hi: int, table, negate: bool) -> None:
+        """Queues the [K, hi - lo] counts of pages [lo, hi) of `batch`: the
+        walk over its PLAIN pages, the dictionary kernel over its dictionary
+        pages under the batch's accept `table`.  A block without PLAIN pages
+        is not walked and ships no bytes; only a block with dictionary pages
+        uploads its decode arrays."""
+        arrays = batch.arrays
+        is_dict = np.asarray(arrays["page_kind"][lo:hi]) == 1
+        has_plain, has_dict = not is_dict.all(), bool(is_dict.any())
+        stream = plen = nn = None
+        steps = 0
+        if has_plain:
+            stream, plen, nn, steps = self._ship(
+                arrays["payload"][lo:hi],
+                np.where(is_dict, 0, arrays["page_payload_len"][lo:hi]),
+                np.where(is_dict, 0, arrays["page_nn"][lo:hi]))
+        core = (batch.to_device(self.device, _decode.DECODE_ARRAYS,
+                                rows=np.arange(lo, hi))
+                if has_dict else {"page_nn": nn})
+        counts, _values = _scan.device_scan_step(
+            core, stream, plen, nn, table, irs=self.irs, dfa=self.dfa,
+            vmax=batch.vmax, nn_cap=batch.nn_cap, max_def=batch.max_def,
+            negate=bool(negate), steps=steps, has_plain=has_plain,
+            has_dict=has_dict)
+        self.pending.append(counts)
 
     def collect(self) -> np.ndarray:
-        """The queued blocks' per-lane counts, in order, on the host."""
-        out = [h.cpu().numpy() for h in self.pending]
+        """The queued blocks' [K, pages] counts, in order, on the host."""
+        out = [c.cpu().numpy() for c in self.pending]
         self.pending = []
-        return (np.concatenate(out) if out else np.zeros(0, np.int32))
+        return (np.concatenate(out, axis=1) if out
+                else np.zeros((max(len(self.irs), 1), 0), np.int32))
 
 
-def _dict_page_counts(batch, dfas, negate: bool, device) -> torch.Tensor:
-    """[N] int32 match counts of a batch's dictionary pages on `device`
-    (0 on its other pages): the dictionary kernel over the batch's index
-    and level planes."""
-    core = batch.to_device(device, _decode.DECODE_ARRAYS)
-    table = _scan.accept_table(_scan.dict_accepts(batch, dfas), device)
-    counts, _values = _scan.dict_counts(
-        core, table, vmax=batch.vmax, nn_cap=batch.nn_cap,
-        max_def=batch.max_def, negate=bool(negate))
-    return counts[0]
-
-
-def _walk_batch(walker: _BlockWalker, batch, block_pages: int,
+def _walk_batch(walker: _BlockWalker, batch, block_pages: int, dfas,
                 negate: bool) -> None:
-    """Queues the PLAIN pages of `batch` on `walker`, `block_pages` pages a
-    block (dictionary pages ride along as empty lanes; a block without a
-    PLAIN page is not walked)."""
-    arrays = batch.arrays
-    is_dict = np.asarray(arrays["page_kind"]) == 1
-    plen = np.where(is_dict, 0, arrays["page_payload_len"])
-    nn = np.where(is_dict, 0, arrays["page_nn"])
+    """Queues the counts of `batch` on `walker`, `block_pages` pages a
+    block.  The accept table of the dictionary entries is made once for
+    the batch (each row group has its own dictionary)."""
+    table = _scan.dict_table(batch, dfas, walker.device)
     for lo in range(0, batch.n_pages, block_pages):
-        hi = min(lo + block_pages, batch.n_pages)
-        if is_dict[lo:hi].all():
-            walker.skip(hi - lo)
-            continue
         with stage("dpq.upload"):
-            walker.walk(arrays["payload"][lo:hi], plen[lo:hi], nn[lo:hi],
-                        negate)
+            walker.step(batch, lo, min(lo + block_pages, batch.n_pages),
+                        table, negate)
 
 
 @dataclass
@@ -318,8 +318,7 @@ class ScanEngine:
                 box["pages"] = batch.n_pages
             arrays = batch.arrays
             n = batch.n_pages
-            if _scan.scan_steps(arrays["page_payload_len"]) \
-                    > _scan.SPLIT_TRIGGER:
+            if _scan.has_big_pages(arrays["page_payload_len"]):
                 # big pages: blocks would walk one mega-page per lane —
                 # the value-boundary split layout instead
                 return ResidentColumn(self.reader, column, device=device,
@@ -330,16 +329,10 @@ class ScanEngine:
             with get_metrics().timed("scan_dispatch",
                                      batches=-(-n // bp)) as box, \
                     stage("dpq.scan_dispatch"):
-                _walk_batch(walker, batch, bp, negate)
+                _walk_batch(walker, batch, bp, dfas, negate)
                 box["host_copy_seconds"] = walker.host_seconds
-            is_dict = np.asarray(arrays["page_kind"]) == 1
-            dict_counts = (_dict_page_counts(batch, dfas, negate, device)
-                           if bool(is_dict.any()) else None)
             with stage("dpq.collect"):
-                counts = walker.collect()
-                if dict_counts is not None:
-                    counts = np.where(is_dict, dict_counts.cpu().numpy(),
-                                      counts)
+                counts = walker.collect()[0]
         return PageMatchResult(
             page_gid=arrays["page_gid"].copy(),
             match_counts=counts.astype(np.int64),
@@ -373,41 +366,27 @@ class ScanEngine:
                                        flags=bindings.PS_PAYLOAD)
 
         first = prescan_rg(0)
-        if first.n_pages and int(first.arrays["page_payload_len"].max()) \
-                > _scan.SPLIT_TRIGGER:
+        if _scan.has_big_pages(first.arrays["page_payload_len"]):
             # big pages: the value-boundary split layout instead
             return ResidentColumn(self.reader, column,
                                   device=device)._scan_compiled(
                 pats, dfas, negate)[0]
 
-        done = []  # (batch, pages walked before it, dict counts or None)
+        batches = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             futures = [pool.submit(prescan_rg, rg) for rg in range(1, n_rg)]
-            at = 0
             for rg in range(n_rg):
                 # rg i + 1 prescans while rg i ships and walks
                 batch = first if rg == 0 else futures[rg - 1].result()
-                _walk_batch(walker, batch, block_pages or max(batch.n_pages,
-                                                              1), negate)
-                is_dict = np.asarray(batch.arrays["page_kind"]) == 1
-                done.append((batch, at, _dict_page_counts(
-                    batch, dfas, negate, device) if is_dict.any() else None))
-                at += batch.n_pages
-
-        walked = walker.collect()
-        gids, counts_parts, values_parts = [], [], []
-        for batch, at, dict_counts in done:
-            counts = walked[at:at + batch.n_pages]
-            if dict_counts is not None:
-                counts = np.where(np.asarray(batch.arrays["page_kind"]) == 1,
-                                  dict_counts.cpu().numpy(), counts)
-            gids.append(batch.arrays["page_gid"].copy())
-            counts_parts.append(counts.astype(np.int64))
-            values_parts.append(batch.arrays["page_nn"].astype(np.int64))
+                _walk_batch(walker, batch,
+                            block_pages or max(batch.n_pages, 1), dfas,
+                            negate)
+                batches.append(batch)
         return PageMatchResult(
-            page_gid=np.concatenate(gids),
-            match_counts=np.concatenate(counts_parts),
-            value_counts=np.concatenate(values_parts))
+            page_gid=np.concatenate([b.arrays["page_gid"] for b in batches]),
+            match_counts=walker.collect()[0].astype(np.int64),
+            value_counts=np.concatenate(
+                [b.arrays["page_nn"] for b in batches]).astype(np.int64))
 
     def resident(self, column: str, device) -> "ResidentColumn":
         """Uploads the column's page buffers to `device` once for repeated

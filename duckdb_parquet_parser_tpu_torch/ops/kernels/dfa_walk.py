@@ -32,8 +32,6 @@ walk.
 
 CPU tensors take the plain versions (`stream_walk_plain`, `value_walk_plain`);
 CUDA tensors launch the kernel or raise.  Both entries share `launches`.
-The kernels they replaced stay as yardsticks (`stream_walk_bytewise`,
-`value_walk_rowwise`): no route calls them.
 """
 
 from __future__ import annotations
@@ -76,15 +74,9 @@ def _lib():
     lib.dpq_dfa_stream.argtypes = [vp, ctypes.c_longlong, i, vp, vp, vp, i, i,
                                    i, i, i, i, vp, vp, vp]
     lib.dpq_dfa_stream.restype = i
-    lib.dpq_dfa_stream_bytewise.argtypes = [vp, ctypes.c_longlong, i, vp, vp,
-                                            vp, i, i, i, i, vp, vp, vp]
-    lib.dpq_dfa_stream_bytewise.restype = i
     lib.dpq_dfa_values.argtypes = [vp, ctypes.c_longlong, i, vp, vp, i, i, i,
                                    i, i, i, vp, vp]
     lib.dpq_dfa_values.restype = i
-    lib.dpq_dfa_values_rowwise.argtypes = [vp, ctypes.c_longlong, i, vp, vp,
-                                           i, i, i, i, vp, vp]
-    lib.dpq_dfa_values_rowwise.restype = i
     lib.dpq_dfa_blocks_per_sm.argtypes = [i, i]
     lib.dpq_dfa_blocks_per_sm.restype = i
     return lib
@@ -292,32 +284,6 @@ def stream_walk(chunked: torch.Tensor, plen: torch.Tensor, nn: torch.Tensor,
     return hits, seen
 
 
-def stream_walk_bytewise(chunked: torch.Tensor, plen: torch.Tensor,
-                         nn: torch.Tensor, dfa, steps: int | None = None, *,
-                         staged: bool = True):
-    """The one-thread-a-lane byte loop that `stream_walk`'s kernel
-    replaced, on CUDA tensors only, the packed table staged in each 64-lane
-    block (`staged`) or read from device memory: the yardstick
-    `chip_smoke.py` and `utils/probe_stream_walk.py` time `stream_walk`
-    against.  No route calls it, and it counts no launch."""
-    dev, n, steps = _check_stream(chunked, plen, nn, steps)
-    _check_cuda(dev)
-    hits = torch.empty((n,), dtype=torch.int32, device=dev)
-    seen = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return hits, seen
-    packed, table = _device_table(dfa, dev)
-    rc = _lib().dpq_dfa_stream_bytewise(
-        chunked.data_ptr(), n, steps, plen.data_ptr(), nn.data_ptr(),
-        table.data_ptr(), table.numel(), packed.n_classes, packed.accept0,
-        int(staged), hits.data_ptr(), seen.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bytewise stream walk launch failed: cudaError "
-                           f"{rc}")
-    return hits, seen
-
-
 # ── the per-value walk ──────────────────────────────────────────────────────
 
 
@@ -377,25 +343,3 @@ def value_walk(chars: torch.Tensor, lens: torch.Tensor, dfa, *,
     launches += 1
     return out
 
-
-def value_walk_rowwise(chars: torch.Tensor, lens: torch.Tensor, dfa, *,
-                       staged: bool = True) -> torch.Tensor:
-    """The one-thread-a-value walk that `value_walk`'s kernel replaced,
-    on CUDA tensors only: the yardstick `chip_smoke.py` and
-    `utils/probe_value_walk.py` time `value_walk` against.  No route calls
-    it, and it counts no launch."""
-    if chars.dtype != torch.uint8 or chars.dim() != 2:
-        raise ValueError("chars must be a 2-D uint8 tensor")
-    dev, count, pitch = _check_values(chars, lens)
-    out = torch.empty((count,), dtype=torch.bool, device=dev)
-    if count == 0:
-        return out
-    packed, table = _device_table(dfa, dev)
-    rc = _lib().dpq_dfa_values_rowwise(
-        chars.data_ptr(), count, pitch, lens.data_ptr(), table.data_ptr(),
-        table.numel(), packed.n_classes, packed.accept0, int(staged),
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"row-wise value walk launch failed: cudaError "
-                           f"{rc}")
-    return out

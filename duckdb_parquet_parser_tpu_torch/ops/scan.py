@@ -8,8 +8,8 @@ for patterns outside the DFA subset (`scan_batch_fallback`,
 `match_rows_fallback`: a route by pattern class, never taken because a
 kernel failed).  The device step (`_device_scan_step` /
 `_device_scan_multi_step` in the reference) is `device_scan_step`; the
-resident column (models/scan.py) drives it, and the one-shot
-`ScanEngine.scan` goes through a resident column too.
+resident column and the block scans (models/scan.py) drive it, and the
+one-shot `ScanEngine.scan` goes through a resident column too.
 
 Per query: PLAIN pages walk their raw payload bytes through the stream
 matcher (kernel K1 for register-machine patterns, K3's page walk for a
@@ -231,6 +231,13 @@ def scan_batch_fallback(batch, pattern: str, *,
                            participating)
 
 
+def has_big_pages(plen, trigger: int = SPLIT_TRIGGER) -> bool:
+    """Whether any page's payload exceeds `trigger` bytes: such pages walk
+    as value-boundary segments (`split_payload_pages`), not one a lane."""
+    plen = np.asarray(plen)
+    return plen.size > 0 and int(plen.max()) > trigger
+
+
 @annotate("dpq.split_plan")
 def split_payload_pages(arrays, trigger: int = SPLIT_TRIGGER,
                         target: int = SPLIT_TARGET):
@@ -240,7 +247,7 @@ def split_payload_pages(arrays, trigger: int = SPLIT_TRIGGER,
     seg_len, seg_nn, seg_page) or None when no page exceeds `trigger` or
     nothing split."""
     plen = np.asarray(arrays["page_payload_len"])
-    if plen.size == 0 or int(plen.max()) <= trigger:
+    if not has_big_pages(plen, trigger):
         return None
     dims, segs = bindings.native_split_plan(
         np.asarray(arrays["payload"]), plen, np.asarray(arrays["page_nn"]),
@@ -267,6 +274,14 @@ def accept_table(dict_match: np.ndarray, device) -> torch.Tensor:
     """The [K, DN] uint8 accept table of one query on `device`, from
     `dict_accepts`' bools."""
     return to_tensor(np.asarray(dict_match).view(np.uint8), device)
+
+
+def dict_table(batch, dfas, device):
+    """`accept_table(dict_accepts(batch, dfas), device)` where `batch`
+    holds a dictionary page; None where it holds none."""
+    if not (np.asarray(batch.arrays["page_kind"]) == 1).any():
+        return None
+    return accept_table(dict_accepts(batch, dfas), device)
 
 
 def dict_counts(core, table, *, vmax: int, nn_cap: int, max_def: int,
@@ -327,13 +342,15 @@ def device_scan_step(core, stream, walk_plen, walk_nn, table, *, irs, dfa,
                      has_dict: bool = True, seg=None):
     """Counts of one page bucket for K patterns.
 
-    core: DECODE_ARRAYS tensors of the bucket's N pages; stream: the
-    resident byte stream of its lanes (`resident_stream`); walk_plen,
-    walk_nn: [lanes] int32 payload lengths and value counts, zero on the
-    lanes of dictionary pages; table: the query's [K, DN] uint8 accept
-    table.  `has_plain` / `has_dict` say which page kinds the bucket holds:
-    the walk runs only over PLAIN pages and the dictionary kernel only
-    over dictionary pages, and a kind the bucket lacks costs no launch.
+    core: DECODE_ARRAYS tensors of the bucket's N pages (only `page_nn`
+    where it holds no dictionary page); stream: the byte stream of its
+    lanes in the stream matcher's chunked layout (`resident_stream`);
+    walk_plen, walk_nn: [lanes] int32 payload lengths and value counts,
+    zero on the lanes of dictionary pages; table: the query's [K, DN]
+    uint8 accept table.  `has_plain` / `has_dict` say which page kinds
+    the bucket holds: the walk runs only over PLAIN pages and the
+    dictionary kernel only over dictionary pages, and a kind the bucket
+    lacks costs no launch.
     With `seg` ([lanes] int64) the lanes are value-boundary segments of
     the pages and their hits sum back to pages.  Returns (counts [K, N],
     values [N]), integer tensors."""

@@ -26,7 +26,6 @@ import argparse
 import contextlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -112,9 +111,7 @@ def main(argv=None) -> int:
     from duckdb_parquet_parser_tpu_torch.ops.strings import pattern_ir
     from duckdb_parquet_parser_tpu_torch.utils import fixtures
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = bench.card_line()
     print(f"card: {card}; tree {root}", flush=True)
     bench.build_host_library()
     bench.build_kernels([(PATTERNS["register_machine"],)])

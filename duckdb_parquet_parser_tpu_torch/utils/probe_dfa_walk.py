@@ -16,13 +16,13 @@ Usage: CXX=g++ python3 -m duckdb_parquet_parser_tpu_torch.utils.probe_dfa_walk
 
 from __future__ import annotations
 
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..bench import card_line
 from ..host.batch import to_tensor
 from ..models.scan import ScanEngine
 from ..ops.kernels import dfa_walk
@@ -57,9 +57,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_dfa_walk: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     path = fixtures.lineitem(
         ROOT / "build" / "fixtures" / f"lineitem_{ROWS}.parquet", ROWS)
     eng = ScanEngine(str(path))

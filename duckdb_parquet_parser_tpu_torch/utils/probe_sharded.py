@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -36,7 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..bench import build_host_library, build_kernels, launches_of
+from ..bench import build_host_library, build_kernels, card_line, launches_of
 from ..host.reader import ParquetReader
 from ..models.scan import ScanEngine
 from ..ops.kernels import dict_lookup
@@ -362,10 +361,7 @@ def main(argv=None) -> int:
                                  "compared")} for rep in reports]}),
               flush=True)
     if args.device == "cuda":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True
-        ).stdout.strip(), flush=True)
+        print(card_line(), flush=True)
     return 0
 
 

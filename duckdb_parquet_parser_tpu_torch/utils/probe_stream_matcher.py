@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -198,11 +197,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_stream_matcher: no CUDA device", file=sys.stderr)
         return 2
+    from duckdb_parquet_parser_tpu_torch.bench import card_line
     from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}; tree {root}", flush=True)
     irs_by_label = pattern_irs()
     stream_matcher.prepare(list(irs_by_label.values()))

@@ -6,9 +6,8 @@ checkout this file is in) over the resident 2M-row `l_comment` column under
 length buckets and on the split layout (its pages cut into 256-byte
 segments at value boundaries), on the card alone (the calls queued behind a
 few ms of other work, so the host's launch cost hides) and a call (CUDA
-events around back-to-back calls), the least of several rounds; in turns
-with it, where the package has one, the bytewise walk it replaced
-(`stream_walk_bytewise`).  Every result is checked against the plain loop.
+events around back-to-back calls), the least of several rounds.  Every
+result is checked against the plain loop.
 Run it once a tree, in turns, to hold two trees against each other in one
 run on one card (each tree builds its own kernels under its own
 `build/`).  `--ablate` builds csrc/dfa_walk.cu as it is and under each of
@@ -25,7 +24,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -191,6 +189,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_stream_walk: no CUDA device", file=sys.stderr)
         return 2
+    from duckdb_parquet_parser_tpu_torch.bench import card_line
     from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
         dfa_walk,
@@ -200,9 +199,7 @@ def main(argv=None) -> int:
     from duckdb_parquet_parser_tpu_torch.utils import fixtures
     from duckdb_parquet_parser_tpu_torch.utils.probe_value_walk import _ms
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}; tree {root}", flush=True)
     fdir = Path(args.fixtures) if args.fixtures else root / "build" / "fixtures"
     path = fixtures.lineitem(fdir / f"lineitem_{ROWS}.parquet", ROWS)
@@ -214,23 +211,19 @@ def main(argv=None) -> int:
     for label, (stream, pl, nv, steps) in lay.items():
         want = wants[label] = dfa_walk.stream_walk_plain(
             stream_matcher.unchunk_stream(stream, steps), pl, nv, dfa, steps)
-        walks = {"page": lambda: dfa_walk.stream_walk(stream, pl, nv, dfa,
-                                                      steps)}
-        if hasattr(dfa_walk, "stream_walk_bytewise"):
-            walks["bytewise"] = lambda: dfa_walk.stream_walk_bytewise(
-                stream, pl, nv, dfa, steps)
-        for name, fn in walks.items():
-            if not all(map(torch.equal, fn(), want)):
-                raise AssertionError(f"{name} walk differs from the plain "
-                                     f"one on {label}")
+        def walk():
+            return dfa_walk.stream_walk(stream, pl, nv, dfa, steps)
+
+        if not all(map(torch.equal, walk(), want)):
+            raise AssertionError(f"page walk differs from the plain one on "
+                                 f"{label}")
         best: dict = {"walked_bytes": int(torch.where(
             nv > 0, pl.clamp(max=steps), 0).sum())}
         for _ in range(args.rounds):
-            for name, fn in walks.items():
-                for queued in (True, False):
-                    key = f"{name}_{'device_' if queued else ''}ms"
-                    best[key] = min(best.get(key, float("inf")),
-                                    _ms(fn, 20, queued))
+            for queued in (True, False):
+                key = f"page_{'device_' if queued else ''}ms"
+                best[key] = min(best.get(key, float("inf")),
+                                _ms(walk, 20, queued))
         out[label] = best
     if args.ablate:
         big = max((k for k in lay if k.startswith("bucket")),

@@ -5,10 +5,8 @@ checkout this file is in) on `str_padded` of the 2M-row `l_comment` column
 under `(furiously|carefully) (express|regular)+ (deposits|requests)`: on
 the card alone (the calls queued behind a few ms of other work, so the
 host's launch cost hides) and a call (CUDA events around back-to-back
-calls), both the least of several rounds; beside it, where the package has
-one, the one-thread-a-row walk it replaced (`value_walk_rowwise`), and the
-page walk (`stream_walk`) over the larger resident bucket on the card
-alone.  Every result is checked against `value_walk_plain`.  Run it once a
+calls), both the least of several rounds; beside it, the page walk
+(`stream_walk`) over the larger resident bucket on the card alone.  Every result is checked against `value_walk_plain`.  Run it once a
 tree, in turns, to hold two trees against each other in one session on one
 card (each tree builds its own kernels under its own `build/`).  `--sweep`
 also builds csrc/dfa_walk.cu at 256, 512 and 1,024 threads a block
@@ -16,7 +14,7 @@ also builds csrc/dfa_walk.cu at 256, 512 and 1,024 threads a block
 variant of each, with its registers; `--ablate` builds it as it is and
 without its walk or without its loads of the rows (ABLATIONS) and times
 the three; `--sass FILE` writes the per-value kernels' machine code there;
-`--diagnose` times both walks on the card alone in set-ups that take one
+`--diagnose` times the walk on the card alone in set-ups that take one
 cost away at a time: a one-state automaton (every lane reads the same
 table row), every row the first one (every lane reads the same entry),
 and the first sixteenth of the rows (which the 50 MB L2 holds); beside
@@ -176,7 +174,7 @@ def ablate(chars, lens, dfa, want, rounds: int) -> dict:
 
 
 def diagnose(chars, lens, dfa, rounds: int) -> dict:
-    """{set-up: {walk: ms on the card alone}} (see the module's note)."""
+    """{set-up: ms on the card alone} (see the module's note)."""
     import numpy as np
     import torch
 
@@ -202,13 +200,10 @@ def diagnose(chars, lens, dfa, rounds: int) -> dict:
         for name, (c, ln, d) in setups.items():
             want = dfa_walk.value_walk_plain(c, ln, d)
             scale = 16 if c.shape[0] == part else 1
-            for walk, fn in (("value", dfa_walk.value_walk),
-                             ("rowwise", dfa_walk.value_walk_rowwise)):
-                if not torch.equal(fn(c, ln, d), want):
-                    raise AssertionError(f"{walk} differs on {name}")
-                ms = scale * _ms(lambda: fn(c, ln, d), 20, True)
-                slot = out.setdefault(name, {})
-                slot[walk] = min(slot.get(walk, float("inf")), ms)
+            if not torch.equal(dfa_walk.value_walk(c, ln, d), want):
+                raise AssertionError(f"the walk differs on {name}")
+            ms = scale * _ms(lambda: dfa_walk.value_walk(c, ln, d), 20, True)
+            out[name] = min(out.get(name, float("inf")), ms)
     return out
 
 
@@ -243,15 +238,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_value_walk: no CUDA device", file=sys.stderr)
         return 2
+    from duckdb_parquet_parser_tpu_torch.bench import card_line
     from duckdb_parquet_parser_tpu_torch.host.batch import to_tensor
     from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
     from duckdb_parquet_parser_tpu_torch.ops.kernels import dfa_walk
     from duckdb_parquet_parser_tpu_torch.ops.regex import compile_pattern
     from duckdb_parquet_parser_tpu_torch.utils import fixtures
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}; tree {root}", flush=True)
     fdir = Path(args.fixtures) if args.fixtures else root / "build" / "fixtures"
     path = fixtures.lineitem(fdir / f"lineitem_{ROWS}.parquet", ROWS)
@@ -263,13 +257,11 @@ def main(argv=None) -> int:
     bk = max(col._buckets, key=lambda b: b["stream"].numel())
     dfa = compile_pattern(PATTERN)
     want = dfa_walk.value_walk_plain(chars, lens, dfa)
-    walks = {"value": lambda: dfa_walk.value_walk(chars, lens, dfa)}
-    if hasattr(dfa_walk, "value_walk_rowwise"):
-        walks["rowwise"] = lambda: dfa_walk.value_walk_rowwise(chars, lens,
-                                                               dfa)
-    for name, fn in walks.items():
-        if not torch.equal(fn(), want):
-            raise AssertionError(f"{name} walk differs from the plain one")
+    def value():
+        return dfa_walk.value_walk(chars, lens, dfa)
+
+    if not torch.equal(value(), want):
+        raise AssertionError("value walk differs from the plain one")
     page = lambda: dfa_walk.stream_walk(bk["stream"], bk["walk_plen"],  # noqa: E731
                                         bk["walk_nn"], dfa, bk["steps"])
     out = {"root": str(root), "card": card, "shape": list(chars.shape),
@@ -277,11 +269,10 @@ def main(argv=None) -> int:
            "fetch_floor_bytes": fetch_floor(chars, lens)}
     best: dict = {}
     for _ in range(args.rounds):
-        for name, fn in walks.items():
-            for queued in (True, False):
-                key = f"{name}_{'device_' if queued else ''}ms"
-                best[key] = min(best.get(key, float("inf")),
-                                _ms(fn, 20, queued))
+        for queued in (True, False):
+            key = f"value_{'device_' if queued else ''}ms"
+            best[key] = min(best.get(key, float("inf")),
+                            _ms(value, 20, queued))
         best["page_device_ms"] = min(best.get("page_device_ms", float("inf")),
                                      _ms(page, 20, True))
     out.update(best)

@@ -12,8 +12,7 @@ dfa_walk.py, csrc/dfa_walk.cu), against the JAX package's table walks.
   up to 4,096 states and 256 byte classes, zero-length values, lanes with
   no value, lanes longer than `steps`, a length prefix that reaches bit 31,
   rows that are and are not 16-byte aligned; the page walk with the folded
-  and the packed table, and the bytewise walk it replaced, at the edges of
-  its 16-byte chunks (`PAGE_EDGES`).
+  and the packed table at the edges of its 16-byte chunks (`PAGE_EDGES`).
 * The routes that reach K3 (`ResidentColumn.scan`, `scan_streaming`,
   `scan_batched`, `matching_rows`, `single_chip_forward`, a one-rank
   `distributed_scan`, `scaling_bench`) on a file with nulls and dictionary
@@ -240,9 +239,6 @@ def host_lib(tmp_path_factory):
     lib.dpq_dfa_stream_host.argtypes = [vp, ctypes.c_longlong, i, vp, vp, vp,
                                         i, i, i, i, vp, vp]
     lib.dpq_dfa_stream_host.restype = None
-    lib.dpq_dfa_stream_bytewise_host.argtypes = [vp, ctypes.c_longlong, i, vp,
-                                                 vp, vp, i, i, vp, vp]
-    lib.dpq_dfa_stream_bytewise_host.restype = None
     lib.dpq_dfa_values_host.argtypes = [vp, ctypes.c_longlong, i, vp, vp, i,
                                         i, i, i, vp]
     lib.dpq_dfa_values_host.restype = None
@@ -252,8 +248,7 @@ def host_lib(tmp_path_factory):
 def _host_stream(lib, dfa, pm, plen, nn, steps=None, walk="folded"):
     """The g++ build of the kernel's page walk over the kernel's layouts:
     `walk` "folded" (the folded table, for automata up to FOLD_MAX_STATES
-    states; the packed one above), "packed", or "bytewise" (the byte loop
-    the kernel replaced)."""
+    states; the packed one above) or "packed"."""
     n = pm.shape[0]
     steps = pm.shape[1] if steps is None else steps
     chunked = stream_matcher.chunk_stream(
@@ -265,22 +260,17 @@ def _host_stream(lib, dfa, pm, plen, nn, steps=None, walk="folded"):
     seen = np.full(n, -7, np.int32)
     args = (chunked.ctypes.data, n, steps, plen.ctypes.data, nn.ctypes.data,
             packed.data.ctypes.data)
-    if walk == "bytewise":
-        lib.dpq_dfa_stream_bytewise_host(*args, packed.n_classes,
-                                         packed.accept0, hits.ctypes.data,
-                                         seen.ctypes.data)
-    else:
-        mode = dfa_walk.FOLDED if walk == "folded" else dfa_walk.PACKED_SHARED
-        lib.dpq_dfa_stream_host(*args, packed.n_states, packed.n_classes,
-                                packed.accept0, mode, hits.ctypes.data,
-                                seen.ctypes.data)
+    mode = dfa_walk.FOLDED if walk == "folded" else dfa_walk.PACKED_SHARED
+    lib.dpq_dfa_stream_host(*args, packed.n_states, packed.n_classes,
+                            packed.accept0, mode, hits.ctypes.data,
+                            seen.ctypes.data)
     return hits, seen
 
 
 def _host_walks(dfa) -> list[str]:
     """The host page walks that apply to `dfa`."""
     folds = dfa.byte_classes().table.shape[0] <= dfa_walk.FOLD_MAX_STATES
-    return ["folded"] * folds + ["packed", "bytewise"]
+    return ["folded"] * folds + ["packed"]
 
 
 def _host_values(lib, dfa, chars, lens, mode=dfa_walk.FOLDED):
@@ -376,13 +366,12 @@ def _page_edge_dfa(name: str) -> DFA:
 @pytest.mark.parametrize("dfa_name", PAGE_EDGE_DFAS)
 @pytest.mark.parametrize("edge", list(PAGE_EDGES))
 def test_host_page_walk_chunk_edges(host_lib, edge, dfa_name):
-    """The page walk with the folded and with the packed table, and the
-    bytewise walk, against the JAX package's `match_payload_stream` at the
-    edges of its chunks, under cuts of `steps` that land in prefixes and
+    """The page walk with the folded and with the packed table against the
+    JAX package's `match_payload_stream` at the edges of its chunks, under cuts of `steps` that land in prefixes and
     in values."""
     dfa = _page_edge_dfa(dfa_name)
     pm, plen, nn = _page_edge([edge])
-    walks = ["packed", "bytewise"] + ["folded"] * (
+    walks = ["packed"] + ["folded"] * (
         dfa.byte_classes().table.shape[0] <= dfa_walk.FOLD_MAX_STATES)
     assert dfa_name.startswith("random 300") == ("folded" not in walks)
     for steps in PAGE_EDGE_STEPS:
@@ -565,15 +554,6 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         dfa_walk.value_walk(torch.zeros((2, 4), dtype=torch.uint8,
                                         device="meta"), lens.to("meta"), dfa)
-    # the yardstick runs on the card only, and checks as the wrapper does
-    with pytest.raises(ValueError, match="unsupported device cpu"):
-        dfa_walk.stream_walk_bytewise(torch.zeros((1, 2, 16),
-                                                  dtype=torch.uint8),
-                                      lens, lens, dfa)
-    with pytest.raises(ValueError):
-        dfa_walk.stream_walk_bytewise(torch.zeros((1, 2, 8),
-                                                  dtype=torch.uint8),
-                                      lens, lens, dfa)
 
 
 # ── the routes that reach K3 ────────────────────────────────────────────────
@@ -792,8 +772,7 @@ def test_value_kernel_edges_match_plain(cuda, edge):
 def test_page_kernel_edges_match_plain(cuda, dfa_name):
     """The page walk at the edges of its chunks (every lane of PAGE_EDGES
     in one launch), in every variant the automaton takes and the one the
-    wrapper picks, one launch a call; the bytewise yardstick beside it,
-    counting none."""
+    wrapper picks, one launch a call."""
     dfa = _page_edge_dfa(dfa_name)
     pm, plen, nn = _page_edge(list(PAGE_EDGES))
     pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
@@ -807,10 +786,6 @@ def test_page_kernel_edges_match_plain(cuda, dfa_name):
                                        staged=staged)
             assert dfa_walk.launches == before + 1
             assert all(map(torch.equal, got, want)), (staged, steps)
-        before = dfa_walk.launches
-        got = dfa_walk.stream_walk_bytewise(chunked, pl, nv, dfa, steps)
-        assert dfa_walk.launches == before
-        assert all(map(torch.equal, got, want)), ("bytewise", steps)
     torch.cuda.synchronize()
 
 
@@ -842,8 +817,8 @@ def comment_buckets(tmp_path_factory):
 @pytest.mark.parametrize("case", CASES)
 def test_page_kernel_on_comment_buckets(comment_buckets, case):
     """The page walk on l_comment's two buckets and its split layout, in
-    every variant and the one the wrapper picks, and the bytewise
-    yardstick, bit for bit the plain loop's."""
+    every variant and the one the wrapper picks, bit for bit the plain
+    loop's."""
     dfa = _case(case)[0]
     assert len(comment_buckets) == 3
     fits = (len(dfa_walk.pack_table(dfa).data) <= torch.cuda.
@@ -854,25 +829,9 @@ def test_page_kernel_on_comment_buckets(comment_buckets, case):
         walks = [lambda st=st: dfa_walk.stream_walk(stream, pl, nv, dfa,
                                                     steps, staged=st)
                  for st in [None, False] + [True] * fits]
-        walks.append(lambda: dfa_walk.stream_walk_bytewise(
-            stream, pl, nv, dfa, steps, staged=fits))
         for walk in walks:
             assert all(map(torch.equal, walk(), want)), tuple(stream.shape)
     torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-def test_rowwise_yardstick_matches_plain(cuda):
-    dfa = compile_pattern(TABLE_PATTERNS[0])
-    chars, lens = _edge_values("P=64 offset 8")
-    c = torch.from_numpy(np.ascontiguousarray(chars)).to(cuda)
-    ln = torch.from_numpy(lens).to(cuda)
-    before = dfa_walk.launches
-    for staged in (True, False):
-        assert torch.equal(dfa_walk.value_walk_rowwise(c, ln, dfa,
-                                                       staged=staged),
-                           dfa_walk.value_walk_plain(c, ln, dfa))
-    assert dfa_walk.launches == before
 
 
 @pytest.mark.cuda

@@ -2,8 +2,10 @@
 its fused single step (`single_chip_forward` over `build_example_batch`)
 against the JAX package's on the same files, against the numpy golden
 `scan_batch(xp=np)` and against the native `cold_scan`.  PLAIN, dictionary
-and mixed files, negate, blocks that cut row groups, the big-page reroute,
-the profiler trace and the stage metrics of `scan_batched`.  Tolerance 0:
+and mixed files, negate, blocks that cut row groups, blocks of one page
+(each holds dictionary pages only or PLAIN pages only) with the bytes they
+upload, the big-page reroute, the profiler trace and the stage metrics of
+`scan_batched`.  Tolerance 0:
 per-page integer counts.  The `cuda`-marked case holds the block scans and
 the row-level matches on the card against the native scan and needs only the
 port (the reference is imported inside the tests that use it)."""
@@ -16,6 +18,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from duckdb_parquet_parser_tpu_torch.host import bindings
 from duckdb_parquet_parser_tpu_torch.host.schema import ParquetType
@@ -23,7 +26,8 @@ from duckdb_parquet_parser_tpu_torch.host.writer import ColumnSpec, ParquetWrite
 from duckdb_parquet_parser_tpu_torch.models import scan as port_models
 from duckdb_parquet_parser_tpu_torch.models.scan import ScanEngine
 from duckdb_parquet_parser_tpu_torch.ops import scan as port_scan
-from duckdb_parquet_parser_tpu_torch.utils import config, metrics
+from duckdb_parquet_parser_tpu_torch.ops.decode import DECODE_ARRAYS
+from duckdb_parquet_parser_tpu_torch.utils import config, metrics, tracing
 
 KINDS = ["plain", "dict", "mixed"]
 # a register-machine pattern, a substring chain, and one that needs the
@@ -94,18 +98,73 @@ def _golden(path, pattern, negate):
     return ref_scan.scan_batch(batch, pattern, negate=negate, xp=np)
 
 
+def _no_walk(stream, plen, nn, irs, dfa, steps):
+    """A stand-in for the byte walk: zero hits (the plain CPU walk records
+    too many profiler events to run under one)."""
+    return torch.zeros((max(len(irs), 1), plen.shape[0]), dtype=torch.int32)
+
+
+def _uploaded(fn) -> int:
+    """The bytes that `fn()` counts as `h2d_bytes`, run under a CPU
+    profiler with the byte walk stood in for."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_scan, "walk_hits", _no_walk)
+        before = tracing.counters().get("h2d_bytes", 0)
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+        return tracing.counters()["h2d_bytes"] - before
+
+
+def _blockwise_uploads(batch, pattern, block_pages: int) -> int:
+    """The bytes a block scan uploaded for `batch` in blocks of
+    `block_pages` pages before the blocks counted through
+    `ops/scan.device_scan_step`: the walked payload rows and the [2, n]
+    int32 walk lengths of each block with a PLAIN page; for a batch with
+    dictionary pages, every page's decode arrays and the accept table."""
+    arrays = batch.arrays
+    is_dict = np.asarray(arrays["page_kind"]) == 1
+    plen = np.where(is_dict, 0, arrays["page_payload_len"])
+    total = 0
+    for lo in range(0, batch.n_pages, block_pages):
+        hi = min(lo + block_pages, batch.n_pages)
+        if not is_dict[lo:hi].all():
+            steps = port_scan.scan_steps(plen[lo:hi])
+            total += arrays["payload"][lo:hi, :steps].nbytes + 8 * (hi - lo)
+    if is_dict.any():
+        _pats, dfas = port_scan.prepare_patterns([pattern])
+        total += sum(arrays[k].nbytes for k in DECODE_ARRAYS if k in arrays)
+        total += port_scan.dict_accepts(batch, dfas).nbytes
+    return total
+
+
+def _block_sizes(scan_file, sizes):
+    """`sizes`, and one page a block on the mixed file: each block then
+    holds dictionary pages only or PLAIN pages only."""
+    return sizes + ((1,) if os.path.basename(scan_file) == "m.parquet"
+                    else ())
+
+
 @pytest.mark.parametrize("negate", [False, True])
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_scan_batched_matches_golden_and_cold(scan_file, pattern, negate):
     eng = ScanEngine(scan_file)
     want = _golden(scan_file, pattern, negate)
-    for batch_pages in (16384, 7):
-        got = eng.scan_batched("s", pattern, negate=negate,
-                               batch_pages=batch_pages, device="cpu")
+    for batch_pages in _block_sizes(scan_file, (16384, 7)):
+        def scan(bp=batch_pages):
+            return eng.scan_batched("s", pattern, negate=negate,
+                                    batch_pages=bp, device="cpu")
+
+        got = scan()
         _same(got, want, f"batch_pages={batch_pages}")
     cold = eng.cold_scan("s", pattern, negate=negate, exact_counts=True,
                          stats_prune=False)
     _same(got, cold, "cold_scan")
+    if batch_pages == 1:
+        _same(got, eng.resident("s", device="cpu").scan(pattern,
+                                                         negate=negate))
+        batch = eng.reader.prescan("s", pad_strings=8,
+                                   flags=bindings.PS_PAYLOAD)
+        assert 0 < _uploaded(scan) <= _blockwise_uploads(batch, pattern, 1)
 
 
 @pytest.mark.parametrize("negate", [False, True])
@@ -113,13 +172,24 @@ def test_scan_batched_matches_golden_and_cold(scan_file, pattern, negate):
 def test_scan_streaming_matches_golden_and_cold(scan_file, pattern, negate):
     eng = ScanEngine(scan_file)
     want = _golden(scan_file, pattern, negate)
-    for block_pages in (None, 8):
-        got = eng.scan_streaming("s", pattern, negate=negate,
-                                 block_pages=block_pages, device="cpu")
+    for block_pages in _block_sizes(scan_file, (None, 8)):
+        def scan(bp=block_pages):
+            return eng.scan_streaming("s", pattern, negate=negate,
+                                      block_pages=bp, device="cpu")
+
+        got = scan()
         _same(got, want, f"block_pages={block_pages}")
     cold = eng.cold_scan("s", pattern, negate=negate, exact_counts=True,
                          stats_prune=False)
     _same(got, cold, "cold_scan")
+    if block_pages == 1:
+        _same(got, eng.resident("s", device="cpu").scan(pattern,
+                                                         negate=negate))
+        col = eng.reader.find_column("s")
+        parent = sum(_blockwise_uploads(eng.reader.prescan(
+            col, rg, rg + 1, pad_strings=8, flags=bindings.PS_PAYLOAD),
+            pattern, 1) for rg in range(eng.reader.num_row_groups()))
+        assert 0 < _uploaded(scan) <= parent
 
 
 @pytest.mark.parametrize("negate", [False, True])

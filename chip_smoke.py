@@ -216,6 +216,13 @@ K1_PAGE_OPS_PER_BYTE = {
     "take the byte out of the chunk": (1, "int32"),
     "the byte's bits of the chunk's two masks": (2, "int32"),
 }
+# ... where the tuple's byte half is a table (stream_matcher.table_words),
+# the IR's state half alone and, for the byte half, the table's address
+# (the loads of the tuple's words share it; a load is memory, not an
+# operation) and, for each word, its move from the registers it was loaded
+# into a chunk ahead ...
+K1_TABLE_OPS_PER_BYTE = {"the table's address, 4 * byte": (1, "fma")}
+K1_TABLE_OPS_PER_WORD = (1, "fma")
 # ... for each state register, keep it inside a value and 0 outside (an AND
 # with the byte's mask); for each pattern, add its accept where the byte
 # ends a value ...
@@ -247,18 +254,26 @@ _LOGIC = ("and", "or", "xor")
 
 
 def ir_ops(irs) -> dict:
-    """What the IR of the pattern tuple `irs` needs a byte: `nodes` (the IR
-    nodes that compute, one operation each); `fused`, those one
+    """What the IR of the pattern tuple `irs` needs a byte as K1 walks it:
+    `nodes` (the IR nodes that compute, one operation each; where the
+    tuple's byte half is a table, `table_words` of them a byte, those of
+    the state half alone, `bitprog.byte_only` left out); `fused`, those one
     three-input logic instruction (LOP3) does with the node that uses them:
     the single-use `and` with a constant under a zero test (LOP3 with a
     predicate out), and a single-use logic node under another where the two
     take at most three inputs; `either_pipe`, the adds, subtractions and
     left shifts (all by a constant), which the multiply-add pipe can take
     (IMAD.IADD, IMAD.SHL)."""
-    out = {"nodes": 0, "fused": 0, "either_pipe": 0}
+    from duckdb_parquet_parser_tpu_torch.ops import bitprog
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+
+    words = stream_matcher.table_words(irs)
+    out = {"nodes": 0, "fused": 0, "either_pipe": 0, "table_words": words}
     for ir in irs:
+        table = bitprog.byte_only(ir) if words else [False] * len(ir.nodes)
         computes = {i: (op, args) for i, (op, _kind, args)
-                    in enumerate(ir.nodes) if op not in ("const", "input")}
+                    in enumerate(ir.nodes)
+                    if op not in ("const", "input") and not table[i]}
         uses: dict = {}
         for op, args in computes.values():
             # a shift's second argument is its amount, not a node
@@ -294,7 +309,9 @@ def step_ops(irs) -> dict:
     """The work of K1's walk for the pattern tuple `irs`: `per_byte`, what
     a byte of a chunk needs (the IR's operations: `nodes` less those `fused`
     into a LOP3 with their user, the `either_pipe` ones on either pipe;
-    `ir_ops`; then K1_PAGE_OPS_PER_BYTE, K1_PAGE_OPS_PER_REGISTER for each
+    `ir_ops`; then K1_PAGE_OPS_PER_BYTE, K1_TABLE_OPS_PER_BYTE where the
+    byte half is a table and K1_TABLE_OPS_PER_WORD for each of its words,
+    K1_PAGE_OPS_PER_REGISTER for each
     state register and K1_PAGE_OPS_PER_PATTERN for each pattern),
     `per_chunk` (K1_PAGE_OPS_PER_CHUNK) and `per_value`
     (K1_PAGE_OPS_PER_VALUE), each on the int32 lanes, or half of all where
@@ -303,10 +320,11 @@ def step_ops(irs) -> dict:
     unrolled loop's body, comments and preprocessor lines left out; a `?:`
     select counts once, casts and assignments do not count) and, where the
     toolkit has a disassembler, what the compiler made of the chunk loop
-    (the loop that holds the chunk's load): `registers`, `spill_bytes`,
-    `instructions` and `int32_ops` (those the int32 lanes execute: all but
-    the multiply-add pipe's and the branches), for its 16 byte steps and
-    its value boundaries together."""
+    (the loop that holds the chunk's load, and the table's where there is
+    one): `registers`, `spill_bytes`, `instructions` and `int32_ops`
+    (those the int32 lanes execute: all but the multiply-add pipe's, the
+    loads and stores and the branches), for its 16 byte steps and its
+    value boundaries together."""
     from duckdb_parquet_parser_tpu_torch.ops.kernels import (
         build,
         stream_matcher,
@@ -324,6 +342,10 @@ def step_ops(irs) -> dict:
                 "the IR's adds and constant shifts": (ir["either_pipe"],
                                                       "fma"),
                 **K1_PAGE_OPS_PER_BYTE,
+                **(K1_TABLE_OPS_PER_BYTE if ir["table_words"] else {}),
+                "hold each table word a chunk": (
+                    ir["table_words"] * K1_TABLE_OPS_PER_WORD[0],
+                    K1_TABLE_OPS_PER_WORD[1]),
                 "keep each state register": (
                     n_regs * K1_PAGE_OPS_PER_REGISTER[0],
                     K1_PAGE_OPS_PER_REGISTER[1]),
@@ -338,14 +360,17 @@ def step_ops(irs) -> dict:
            "counted": "operations the IR needs a byte and the boundary "
                       "control a byte, a chunk and a value"}
     if build.disassembler() is not None:
+        # the chunk loop: the one with the table's loads where there is a
+        # table (the block's copy of it loops over a global load too)
+        chunk = "LDS" if ir["table_words"] else "LDG"
         (name, info), = [
             kv for kv in build.inspect_source(
-                stream_matcher.render([irs]), loop_containing="LDG").items()
+                stream_matcher.render([irs]), loop_containing=chunk).items()
             if f"dpq_stream_{stream_matcher.tag_of(irs)}" in kv[0]]
         loop = info["loop_instructions"]
         total = sum(loop.values())
         int32 = total - sum(n for op, n in loop.items()
-                            if op in FMA_PIPE + SLOT_ONLY)
+                            if op in FMA_PIPE + SLOT_ONLY + MEMORY_OPS)
         out.update(registers=info["registers"],
                    spill_bytes=info["spill_bytes"], instructions=total,
                    int32_ops=int32)
@@ -692,6 +717,7 @@ def run_main_path(device, rows, dict_rows_per_rg, dict_distinct,
     )
     from duckdb_parquet_parser_tpu_torch.ops.scan import prepare_patterns
     from duckdb_parquet_parser_tpu_torch.utils import fixtures as fx
+    from duckdb_parquet_parser_tpu_torch.utils import tracing
 
     t0 = time.perf_counter()
     path = fx.lineitem(fixtures / f"lineitem_{rows}.parquet", rows)
@@ -702,6 +728,7 @@ def run_main_path(device, rows, dict_rows_per_rg, dict_distinct,
     eng = ScanEngine(str(path))
     deng = ScanEngine(str(dpath))
     stream_matcher.launches = 0
+    stream_matcher.table_launches = 0
     dict_lookup.launches = 0
     t0 = time.perf_counter()
     col = eng.resident("l_comment", device=device)
@@ -758,6 +785,26 @@ def run_main_path(device, rows, dict_rows_per_rg, dict_distinct,
                    hits, pruned))
     launches = {"stream_matcher": stream_matcher.launches,
                 "dict_lookup": dict_lookup.launches}
+    # every pattern of the path has its byte half in a table: each K1
+    # launch counts in table_launches, and in k1_table_launches while a
+    # profiler records
+    if stream_matcher.table_launches != stream_matcher.launches:
+        raise AssertionError(f"{stream_matcher.table_launches} of "
+                             f"{stream_matcher.launches} K1 launches read "
+                             "the byte half's table")
+    k1, counted = stream_matcher.launches, tracing.counters().get(
+        "k1_table_launches", 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        col.scan(BENCH_PATTERNS[0], negate=True)
+    counted = tracing.counters().get("k1_table_launches", 0) - counted
+    if counted != stream_matcher.launches - k1 or counted < 1:
+        raise AssertionError(f"k1_table_launches counted {counted} of "
+                             f"{stream_matcher.launches - k1} K1 launches")
+    log(f"K1 launches on the main path: {k1}, each with its byte half from "
+        f"the table (table_launches {stream_matcher.table_launches - counted}"
+        f"); a traced query: k1_table_launches {counted} of {counted} "
+        "launches")
     return report, launches, col, dcol, eng, deng
 
 
@@ -835,10 +882,14 @@ def time_kernels(col, dcol, device, ops_per_s):
                 f"({ops['instructions'] / 16:.1f} / "
                 f"{ops['int32_ops'] / 16:.1f} a byte), {ops['registers']} "
                 f"registers, {ops['spill_bytes']} spill bytes")
+        half = ("" if not ops["table_words"] else
+                f" of the state half, the byte half's {ops['table_words']} "
+                f"word(s) from the table ({K1_TABLE_OPS_PER_BYTE}, a "
+                f"word's move {K1_TABLE_OPS_PER_WORD})")
         log(f"K1 {pats} at {tuple(bk['stream'].shape)} u8, K={len(irs)}: "
             f"kernel {ms:.4f} ms per call; {walked} bytes walked in {chunks} "
             f"chunks, {values} values; the walk needs {ops['per_byte']:g} "
-            f"int32 operations a byte ({ops['nodes']} IR nodes, "
+            f"int32 operations a byte ({ops['nodes']} IR nodes{half}, "
             f"{ops['fused']} of them fused into a LOP3 with their user, "
             f"{ops['either_pipe']} adds and constant shifts that the "
             "multiply-add pipe may take, the byte's control "

@@ -29,7 +29,9 @@ Two parts, in this order:
   * `eval_torch(ir, state, c)` — the plain PyTorch evaluator (CPU path and
     the reference the kernels are held against);
   * `emit_c(ir, ...)` — straight-line C for the CUDA stream-matcher kernel
-    (ops/kernels/stream_matcher.py).
+    (ops/kernels/stream_matcher.py), whole or its state half alone, the
+    byte-only half then read from a table of 256 words a value
+    (`byte_frontier`, `byte_table`).
 
 Every IR node is typed `bool` or `i32`, following numpy/jnp promotion (a
 bool operand of an integer operator is widened first).  Integer arithmetic
@@ -1602,9 +1604,7 @@ def _prune(g: _Graph, outs, acc, n_regs: int, accept_empty: int):
             continue
         live.add(i)
         op, _kind, args = g.nodes[i]
-        if op in ("const", "input"):
-            continue
-        stack.extend(args[:1] if op in ("shl", "shr") else args)
+        stack.extend(_reads(op, args))
     # inputs always keep their slots so evaluators can bind them by name
     keep = sorted(live | {i for i, n in enumerate(g.nodes) if n[0] == "input"})
     remap = {old: new for new, old in enumerate(keep)}
@@ -1645,18 +1645,9 @@ def _input_slot(name: str) -> int:
     return -1 if name == "c" else int(name[1:])
 
 
-def eval_torch(ir: TransitionIR, state, c: torch.Tensor):
-    """One byte step on tensors: `state` is a tuple of int32 tensors shaped
-    like `c` (the byte, int32).  Returns (next_state tuple, accept int32).
-    Constants stay Python scalars (a scalar operand keeps the tensor's
-    dtype); a constant output is broadcast to `c`'s shape."""
-
-    def full(v, kind=I32):
-        if isinstance(v, torch.Tensor):
-            return v
-        dtype = torch.bool if kind == BOOL else torch.int32
-        return torch.full_like(c, v, dtype=dtype)
-
+def _evaluate(ir: TransitionIR, state, c: torch.Tensor) -> list:
+    """Every node's value for one byte step: a tensor shaped like `c`, or a
+    Python scalar for a constant."""
     vals: list = []
     for op, kind, args in ir.nodes:
         if op == "const":
@@ -1675,12 +1666,78 @@ def eval_torch(ir: TransitionIR, state, c: torch.Tensor):
         elif op == "where":
             cond, a, b = (vals[j] for j in args)
             if not isinstance(a, torch.Tensor):
-                a = full(a, kind)
+                dtype = torch.bool if kind == BOOL else torch.int32
+                a = torch.full_like(c, a, dtype=dtype)
             vals.append(torch.where(cond, a, b))
         else:
             vals.append(_PY_BINARY[op](vals[args[0]], vals[args[1]]))
+    return vals
+
+
+def eval_torch(ir: TransitionIR, state, c: torch.Tensor):
+    """One byte step on tensors: `state` is a tuple of int32 tensors shaped
+    like `c` (the byte, int32).  Returns (next_state tuple, accept int32).
+    Constants stay Python scalars (a scalar operand keeps the tensor's
+    dtype); a constant output is broadcast to `c`'s shape."""
+
+    def full(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.full_like(c, v, dtype=torch.int32)
+
+    vals = _evaluate(ir, state, c)
     return (tuple(full(vals[i]) for i in ir.out_state),
             full(vals[ir.out_accept]))
+
+
+# ── the byte half ───────────────────────────────────────────────────────────
+
+
+def _reads(op: str, args: tuple) -> tuple:
+    """The node ids a node reads (a shift's second argument is its
+    amount)."""
+    if op in ("const", "input"):
+        return ()
+    return args[:1] if op in ("shl", "shr") else args
+
+
+def byte_only(ir: TransitionIR) -> list[bool]:
+    """Per node: it computes from the byte and from no register (the byte
+    itself and the constants are not counted)."""
+    state, byte, out = [], [], []
+    for op, _kind, args in ir.nodes:
+        reads = _reads(op, args)
+        state.append(op == "input" and args[0] != "c"
+                     or any(state[a] for a in reads))
+        byte.append(op == "input" and args[0] == "c"
+                    or any(byte[a] for a in reads))
+        out.append(op != "input" and byte[-1] and not state[-1])
+    return out
+
+
+def byte_frontier(ir: TransitionIR) -> tuple[int, ...]:
+    """The byte-only nodes (`byte_only`) whose values leave the byte-only
+    half: read by a node that reads a register, or a next register or the
+    accept themselves.  They are functions of the byte alone, so a table of
+    each over the 256 bytes (`byte_table`) stands for the whole half."""
+    only = byte_only(ir)
+    front = {i for i in (*ir.out_state, ir.out_accept) if only[i]}
+    for i, (op, _kind, args) in enumerate(ir.nodes):
+        if not only[i] and op != "input":
+            front.update(a for a in _reads(op, args) if only[a])
+    return tuple(sorted(front))
+
+
+def byte_table(ir: TransitionIR) -> torch.Tensor:
+    """[F, 256] int32: row f holds node `byte_frontier(ir)[f]` at every
+    byte value (a bool node as 0 / 1)."""
+    c = torch.arange(256, dtype=torch.int32)
+    zero = tuple(torch.zeros_like(c) for _ in range(ir.n_regs))
+    vals = _evaluate(ir, zero, c)
+    rows = [vals[i].to(torch.int32) for i in byte_frontier(ir)]
+    if not rows:
+        return torch.zeros((0, 256), dtype=torch.int32)
+    return torch.stack(rows)
 
 
 # ── C emitter ───────────────────────────────────────────────────────────────
@@ -1698,15 +1755,25 @@ def _c_const(v: int, kind: str) -> str:
 
 
 def emit_c(ir: TransitionIR, prefix: str, c_name: str, state_names,
-           next_names, accept_name: str) -> str:
+           next_names, accept_name: str, inputs: dict | None = None) -> str:
     """Straight-line C for one byte step: reads `c_name` and the
     `state_names` registers (int32_t), declares `next_names` and
     `accept_name` (int32_t).  Temporaries are `<prefix><node>`.  Integer
     add/sub/shl go through uint32_t (wraparound, never signed overflow);
-    `>>` stays an arithmetic shift of int32_t."""
+    `>>` stays an arithmetic shift of int32_t.
+
+    `inputs` ({node: C expression of int32_t}), where given, emits the
+    state half only: each node of `byte_frontier(ir)` reads its expression
+    (a bool node as the expression != 0), and the other byte-only nodes are
+    left out."""
     if len(state_names) != ir.n_regs or len(next_names) != ir.n_regs:
         raise ValueError("register name count does not match the IR")
-    names: list[str] = []
+    only = [False] * len(ir.nodes)
+    if inputs is not None:
+        if set(inputs) != set(byte_frontier(ir)):
+            raise ValueError("inputs must name the IR's byte frontier")
+        only = byte_only(ir)
+    names: list[str | None] = []
     lines: list[str] = []
     for i, (op, kind, args) in enumerate(ir.nodes):
         if op == "const":
@@ -1716,8 +1783,13 @@ def emit_c(ir: TransitionIR, prefix: str, c_name: str, state_names,
             slot = _input_slot(args[0])
             names.append(c_name if slot < 0 else state_names[slot])
             continue
-        a = [names[j] for j in (args[:1] if op in ("shl", "shr") else args)]
-        if op == "cast":
+        if only[i] and i not in inputs:
+            names.append(None)  # inside the byte half: never read here
+            continue
+        a = [names[j] for j in _reads(op, args)]
+        if only[i]:
+            expr = f"({inputs[i]} != 0)" if kind == BOOL else inputs[i]
+        elif op == "cast":
             expr = f"(int32_t){a[0]}"
         elif op == "not":
             expr = f"!{a[0]}" if kind == BOOL else f"~{a[0]}"

@@ -23,9 +23,16 @@ Run it once a tree, in turns (parent, change, change, parent), to hold two
 trees against each other on one card: each tree builds its own kernels
 under its own `build/`.  `--blocks` times the lineitem bucket at 32-256
 lanes per block instead (how `stream_matcher.THREADS` was chosen).
+`--banks` times the short-value stream on the card alone under three
+alphabets instead: one byte value (every lane of a warp reads one word of
+the byte-half table: a broadcast), the letters and the space (a text
+column's bytes: distinct banks of the table's row), and eight byte values
+of one bank (1, 33, ..., 225: up to eight-way bank conflicts); the first
+two alike show the text's table loads free of conflicts.
 
 Usage: CXX=g++ python3 duckdb_parquet_parser_tpu_torch/utils/probe_stream_matcher.py
-           [--root DIR] [--fixtures DIR] [--orders FILE] [--rounds N] [--blocks]
+           [--root DIR] [--fixtures DIR] [--orders FILE] [--rounds N]
+           [--blocks] [--banks]
 (needs one CUDA device; prints the card, then one JSON line.)
 """
 
@@ -43,6 +50,9 @@ PATTERNS = {"q13": ("%special%packages%", True),
             "special.*requests": ("special.*requests", False)}
 BLOCKS = (32, 64, 128, 256)
 SHORT_LANES, SHORT_VALUES, SHORT_MAX = 53_142, 89, 15
+LETTERS = b"abcdefghijklmnopqrstuvwxyz "
+BANKS = {"one byte": b"e", "letters and space": LETTERS,
+         "eight bytes of one bank": bytes(range(1, 256, 32))}
 
 
 def _ms(fn, reps: int, queued: bool) -> float:
@@ -68,9 +78,10 @@ def _ms(fn, reps: int, queued: bool) -> float:
     return start.elapsed_time(end) / reps
 
 
-def short_values(seed: int = 20, n: int = SHORT_LANES, device="cuda"):
+def short_values(seed: int = 20, n: int = SHORT_LANES, device="cuda",
+                 alphabet: bytes = LETTERS):
     """(stream [chunks, n, 16] u8 on `device`, plen, nn, steps): n lanes of
-    SHORT_VALUES values each 0-SHORT_MAX bytes long, letters and spaces,
+    SHORT_VALUES values each 0-SHORT_MAX bytes long, bytes of `alphabet`,
     zero past each lane's end."""
     import numpy as np
     import torch
@@ -84,7 +95,7 @@ def short_values(seed: int = 20, n: int = SHORT_LANES, device="cuda"):
     starts = ends - lens - 4
     plen = ends[:, -1]
     pitch = -(-int(plen.max()) // 16) * 16
-    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    letters = np.frombuffer(alphabet, np.uint8)
     pm = letters[rng.integers(0, len(letters), size=(n, pitch))]
     pm[np.arange(pitch)[None, :] >= plen[:, None]] = 0
     rows = np.repeat(np.arange(n), v)
@@ -145,7 +156,13 @@ def compiled(irs) -> dict:
     if build.disassembler() is None:
         return out
     tag = stream_matcher.tag_of(irs)
-    for key, containing in (("chunk_loop", "LDG"), ("innermost_loop", None)):
+    # the chunk loop holds the chunk's load and, where the byte half is a
+    # table, the table's loads (the block's copy of the table loops over
+    # a load and a shared store; a tree under --root whose kernel reads
+    # no table has no table_words)
+    table = getattr(stream_matcher, "table_words", lambda irs: 0)(irs)
+    chunk = "LDS" if table else "LDG"
+    for key, containing in (("chunk_loop", chunk), ("innermost_loop", None)):
         (info,) = [v for k, v in build.inspect_source(
             text, loop_containing=containing).items()
             if f"dpq_stream_{tag}" in k]
@@ -182,6 +199,33 @@ def time_blocks(stream, plen, nn, steps, irs_by_label, rounds) -> dict:
     return out
 
 
+def time_banks(irs_by_label, rounds) -> dict:
+    """{alphabet: {pattern label: least ms on the card alone}} of the
+    short-value stream under each alphabet of BANKS, each result held
+    against the plain walk."""
+    import torch
+
+    from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+
+    out = {}
+    for name, alphabet in BANKS.items():
+        stream, pl, nv, steps = short_values(alphabet=alphabet)
+        plain = stream_matcher.unchunk_stream(stream, steps)
+        out[name] = {}
+        for label, irs in irs_by_label.items():
+            def fn(irs=irs):
+                return stream_matcher.match_stream(stream, pl, nv, irs, steps)
+            h1, s1 = fn()
+            h0, s0 = stream_matcher.match_stream_plain(plain, pl, nv, irs,
+                                                       steps)
+            if not (torch.equal(h1, h0) and torch.equal(s1, s0)):
+                raise AssertionError(f"K1 differs from the plain walk on "
+                                     f"{name}, {label}")
+            out[name][label] = min(_ms(fn, 20, True) for _ in range(rounds))
+        del plain
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -189,6 +233,7 @@ def main(argv=None) -> int:
     ap.add_argument("--orders", default=None)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--blocks", action="store_true")
+    ap.add_argument("--banks", action="store_true")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -204,6 +249,11 @@ def main(argv=None) -> int:
     print(f"card: {card}; tree {root}", flush=True)
     irs_by_label = pattern_irs()
     stream_matcher.prepare(list(irs_by_label.values()))
+    if args.banks:
+        out = {"root": str(root), "card": card,
+               "banks": time_banks(irs_by_label, args.rounds)}
+        print(json.dumps(out), flush=True)
+        return 0
     fdir = Path(args.fixtures) if args.fixtures else root / "build" / "fixtures"
     lay = layouts(fdir, args.orders)
     out: dict = {"root": str(root), "card": card, "threads":

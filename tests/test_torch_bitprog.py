@@ -13,10 +13,6 @@ Tolerance 0: every output is an integer count.
 
 from __future__ import annotations
 
-import ctypes
-import shutil
-import subprocess
-
 import numpy as np
 import pytest
 import torch
@@ -26,6 +22,7 @@ from duckdb_parquet_parser_tpu.ops.strings import match_payload_stream
 from duckdb_parquet_parser_tpu_torch.ops import bitprog as tb
 from duckdb_parquet_parser_tpu_torch.ops import strings as ts
 from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+from tests import k1_host
 from tests.page_edges import (K1_EDGE_WALKS, PAGE_EDGE_STEPS, PAGE_EDGES,
                                k1_edge_irs, page_edge)
 from tests.test_bitprog import SUPPORTED, _pages
@@ -74,48 +71,19 @@ def test_bitap_ir_torch_matches_numpy(pages, chain):
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """The emitted walks of every case, built for the host with g++."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
     tuples = ([(tb.bitprog_ir(p),) for p in SUPPORTED]
               + [(ts.bitap_ir(c),) for c in CHAINS]
               + [tuple(ts.pattern_ir(p) for p in FUSED)]
               + [k1_edge_irs(walk) for walk in K1_EDGE_WALKS])
-    d = tmp_path_factory.mktemp("walk")
-    src, so = d / "walk.cpp", d / "walk.so"
-    src.write_text(stream_matcher.render(tuples, host=True))
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC",
-                    "-Wall", "-Werror", "-o", str(so), str(src)],
-                   check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(so))
-
-
-def _host_walk(lib, irs, pm, plen, nn, steps=None):
-    """The g++ build of the kernel's walk, over the kernel's chunked
-    layout of the stream, walking at most `steps` bytes (default: all)."""
-    n = pm.shape[0]
-    pitch = pm.shape[1]
-    pt = stream_matcher.chunk_stream(
-        torch.from_numpy(np.ascontiguousarray(pm.T))).numpy()
-    assert pt.shape == (-(-pitch // 16), n, 16) and pt.flags.c_contiguous
-    steps = pitch if steps is None else steps
-    hits = np.full((len(irs), n), -7, np.int32)
-    seen = np.full(n, -7, np.int32)
-    fn = getattr(lib, f"dpq_stream_host_{stream_matcher.tag_of(irs)}")
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = None
-    plen = np.ascontiguousarray(plen, np.int32)
-    nn = np.ascontiguousarray(nn, np.int32)
-    fn(pt.ctypes.data, n, steps, plen.ctypes.data, nn.ctypes.data,
-       hits.ctypes.data, seen.ctypes.data)
-    return hits, seen
+    return k1_host.build(tuples, tmp_path_factory.mktemp("walk"))
 
 
 @pytest.mark.parametrize("pattern", SUPPORTED)
 def test_emitted_c_matches_numpy(host_lib, pages, pattern):
     pm, plen, nn, _pt = pages
     h0, s0 = _reference(pm, plen, nn, pattern)
-    hits, seen = _host_walk(host_lib, (tb.bitprog_ir(pattern),), pm, plen, nn)
+    hits, seen = k1_host.walk(host_lib, (tb.bitprog_ir(pattern),), pm, plen,
+                              nn)
     np.testing.assert_array_equal(hits[0], h0, err_msg=pattern)
     np.testing.assert_array_equal(seen, s0, err_msg=pattern)
 
@@ -124,7 +92,7 @@ def test_emitted_c_matches_numpy(host_lib, pages, pattern):
 def test_emitted_bitap_c_matches_numpy(host_lib, pages, chain):
     pm, plen, nn, _pt = pages
     h0, s0 = _reference(pm, plen, nn, chain=chain)
-    hits, seen = _host_walk(host_lib, (ts.bitap_ir(chain),), pm, plen, nn)
+    hits, seen = k1_host.walk(host_lib, (ts.bitap_ir(chain),), pm, plen, nn)
     np.testing.assert_array_equal(hits[0], h0)
     np.testing.assert_array_equal(seen, s0)
 
@@ -132,7 +100,7 @@ def test_emitted_bitap_c_matches_numpy(host_lib, pages, chain):
 def test_emitted_fused_c_matches_numpy(host_lib, pages):
     pm, plen, nn, _pt = pages
     irs = tuple(ts.pattern_ir(p) for p in FUSED)
-    hits, seen = _host_walk(host_lib, irs, pm, plen, nn)
+    hits, seen = k1_host.walk(host_lib, irs, pm, plen, nn)
     for k, p in enumerate(FUSED):
         h0, s0 = _reference(pm, plen, nn, p)
         np.testing.assert_array_equal(hits[k], h0, err_msg=p)
@@ -153,7 +121,7 @@ def test_emitted_walk_chunk_edges(host_lib, edge, walk):
             [{"pattern": p} for p in spec])
     pt = torch.from_numpy(np.ascontiguousarray(pm.T))
     for steps in PAGE_EDGE_STEPS:
-        hits, seen = _host_walk(host_lib, irs, pm, plen, nn, steps)
+        hits, seen = k1_host.walk(host_lib, irs, pm, plen, nn, steps)
         h1, s1 = stream_matcher.match_stream_plain(
             pt, torch.from_numpy(plen), torch.from_numpy(nn), irs, steps)
         np.testing.assert_array_equal(hits, h1.numpy(), err_msg=f"{steps}")

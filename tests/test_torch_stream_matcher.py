@@ -3,17 +3,26 @@ stream_matcher.py) against the reference's Pallas kernel, run in interpret
 mode on the CPU as tests/test_pallas_stream.py runs it.  CPU tensors take
 the port's plain version; the kernel-vs-plain cases need a CUDA device.
 The wrapper takes the kernel's chunked stream layout ([chunks, n, 16]);
-the layout converters round-trip.  Tolerance 0: every output is an integer
-count."""
+the layout converters round-trip.  The byte half of a tuple's transition
+is a table of its byte frontier at the 256 byte values: the rendered table
+is held against the IR evaluated byte by byte, and the host build of the
+walk that reads it (tests/k1_host.py) against the plain walk.  Tolerance 0:
+every output is an integer count."""
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from duckdb_parquet_parser_tpu_torch.ops import bitprog as tb
 from duckdb_parquet_parser_tpu_torch.ops import strings as ts
 from duckdb_parquet_parser_tpu_torch.ops.kernels import stream_matcher
+from duckdb_parquet_parser_tpu_torch.ops.regex import like_to_regex
+from duckdb_parquet_parser_tpu_torch.utils import tracing
+from tests import k1_host
 from tests.page_edges import (K1_EDGE_WALKS, PAGE_EDGE_STEPS, PAGE_EDGES,
                                k1_edge_irs, page_edge)
 from tests.test_bitprog import _pages
@@ -24,6 +33,33 @@ PATTERNS = [
     "[abq]{9}", "[a-gq-z]{9,12}x", "[abx ]{10}$",
 ]
 FUSED = [("a.*z", "q[ax]+x", "[abq]{9}"), ("ab|cde|fg", "bc$")]
+
+# the benchmark's LIKE predicates: TPC-H Q13's 16 on o_comment and one of
+# each of part's three templates on p_type
+Q13 = [f"%{a}%{b}%" for a in ("special", "pending", "unusual", "express")
+       for b in ("packages", "requests", "accounts", "deposits")]
+PART = ["PROMO%", "%TIN", "STANDARD ANODIZED%"]
+# pattern tuples whose byte half is a table: {name: ir tuple factory}
+TABLE_CASES = {
+    **{f"Q13 {p}": (lambda p=p: (ts.pattern_ir(like_to_regex(p)),))
+       for p in Q13},
+    **{f"part {p}": (lambda p=p: (ts.pattern_ir(like_to_regex(p)),))
+       for p in PART},
+    "bitap chain": lambda: (ts.bitap_ir((b"ly", b"re", b"qu")),),
+    "fused K=3": lambda: tuple(ts.pattern_ir(p)
+                               for p in ("e.*s", "x{40}y{40}", "ly$")),
+}
+# tuples of more frontier words than stream_matcher.TABLE_WORDS
+OVER_CAP = {
+    "9 Q13 patterns": lambda: tuple(ts.pattern_ir(like_to_regex(p))
+                                    for p in Q13[:9]),
+    "3 x{40}y{40}": lambda: tuple(ts.pattern_ir(p) for p in
+                                  ("x{40}y{40}", "a{40}.*b{35}",
+                                   "q[ab]{28,36}z")),
+}
+# the nodes of a Q13 pattern's byte half: its bit tests and range test
+BYTE_HALF_C = ("(c & 1)", "(c & 2)", "(c & 4)", "(c & 8)", "(c & 16)",
+               "(c & 224)")
 
 
 @pytest.fixture
@@ -133,6 +169,106 @@ def test_render_shares_one_library_per_tuple_set():
     assert "#include <cuda_runtime.h>" in src
 
 
+def _at_zero_state(ir, node: int, c: int) -> int:
+    """Node `node` of `ir` at byte `c` with every register 0, in Python
+    integers (bitprog's constant folding, not its PyTorch evaluator)."""
+    vals: list = []
+    for op, kind, args in ir.nodes[:node + 1]:
+        if op == "const":
+            v = args[0]
+        elif op == "input":
+            v = c if args[0] == "c" else 0
+        elif op == "cast":
+            v = int(vals[args[0]])
+        elif op == "not":
+            v = 1 - vals[args[0]] if kind == tb.BOOL else ~vals[args[0]]
+        elif op in ("shl", "shr"):
+            v = tb._fold(op, vals[args[0]], args[1])
+        elif op == "where":
+            v = vals[args[1]] if vals[args[0]] else vals[args[2]]
+        else:
+            v = tb._fold(op, vals[args[0]], vals[args[1]])
+        vals.append(v)
+    return int(vals[node])
+
+
+def _rendered_table(irs) -> np.ndarray:
+    """[words, 256] of the table in the tuple's rendered source."""
+    tag = stream_matcher.tag_of(irs)
+    m = re.search(rf"dpq_table_{tag}\[(\d+) \* 256\] = \{{(.*?)\}};",
+                  stream_matcher.render([irs]), re.S)
+    values = [int(x) for x in m[2].split(",")]
+    return np.array(values, np.int64).reshape(int(m[1]), 256)
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_table_is_the_byte_frontier_at_every_byte(case):
+    irs = TABLE_CASES[case]()
+    fronts = [(ir, i) for ir in irs for i in tb.byte_frontier(ir)]
+    assert 1 <= len(fronts) <= stream_matcher.TABLE_WORDS
+    assert stream_matcher.table_words(irs) == len(fronts)
+    want = np.array([[_at_zero_state(ir, i, c) for c in range(256)]
+                     for ir, i in fronts])
+    np.testing.assert_array_equal(_rendered_table(irs), want)
+
+
+@pytest.fixture(scope="module")
+def table_lib(tmp_path_factory):
+    """The host walks of TABLE_CASES and OVER_CAP, built with g++."""
+    tuples = [f() for f in (*TABLE_CASES.values(), *OVER_CAP.values())]
+    return k1_host.build(tuples, tmp_path_factory.mktemp("table"))
+
+
+def _all_bytes_pages():
+    """Pages of values of every byte value (NUL and bytes >= 0x80 too),
+    zero-length values among them."""
+    return _pages(np.random.default_rng(22), n_pages=200, vals_per_page=9,
+                  maxlen=40, alphabet=bytes(range(256)))
+
+
+def _host_against_plain(lib, irs):
+    """The host walk of `irs` and the plain walk on all-byte pages and on
+    the chunk-edge lanes, under each cut of PAGE_EDGE_STEPS."""
+    for pm, plen, nn in (_all_bytes_pages(), page_edge(list(PAGE_EDGES))):
+        pt = torch.from_numpy(np.ascontiguousarray(pm.T))
+        for steps in PAGE_EDGE_STEPS:
+            hits, seen = k1_host.walk(lib, irs, pm, plen, nn, steps)
+            h0, s0 = stream_matcher.match_stream_plain(
+                pt, torch.from_numpy(plen), torch.from_numpy(nn), irs, steps)
+            np.testing.assert_array_equal(hits, h0.numpy(), err_msg=f"{steps}")
+            np.testing.assert_array_equal(seen, s0.numpy(), err_msg=f"{steps}")
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_host_walk_with_table_matches_plain(table_lib, case):
+    _host_against_plain(table_lib, TABLE_CASES[case]())
+
+
+@pytest.mark.parametrize("case", list(OVER_CAP))
+def test_tuple_over_the_cap_computes_its_byte_half(table_lib, case):
+    irs = OVER_CAP[case]()
+    words = sum(len(tb.byte_frontier(ir)) for ir in irs)
+    assert words > stream_matcher.TABLE_WORDS
+    assert stream_matcher.table_words(irs) == 0
+    src = stream_matcher.render([irs])
+    assert "dpq_table_" not in src and "tab[" not in src
+    _host_against_plain(table_lib, irs)
+
+
+@pytest.mark.parametrize("like", Q13)
+def test_chunk_loop_holds_no_byte_half(like):
+    """The unrolled byte step of a Q13 pattern reads its mask from the
+    table and computes none of the byte half's nodes."""
+    irs = (ts.pattern_ir(like_to_regex(like)),)
+    src = stream_matcher.render([irs])
+    step = src[src.index("for (int j = 0; j < 16; ++j) {"):
+               src.index("c0 += 16;")]
+    assert "tw[j]" in step
+    assert not [x for x in BYTE_HALF_C if x in step]
+    whole = stream_matcher.render([OVER_CAP["9 Q13 patterns"]()])
+    assert all(x in whole for x in BYTE_HALF_C)
+
+
 @pytest.mark.parametrize("steps", [1, 15, 16, 17, 48, 75])
 def test_stream_layout_round_trips(steps):
     """chunk_stream puts bytes [16 c, 16 c + 16) of lane j at [c, j, :],
@@ -204,6 +340,49 @@ def test_kernel_chunk_edges_match_plain(cuda, walk):
         torch.cuda.synchronize()
         assert stream_matcher.launches == before + 1
         assert torch.equal(h1, h0) and torch.equal(s1, s0), steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TABLE_CASES) + list(OVER_CAP))
+def test_kernel_table_cases_match_plain(cuda, case):
+    """The kernel with its byte half from the table (or, over the cap,
+    computed) on all-byte pages and the chunk-edge lanes, under each cut
+    of PAGE_EDGE_STEPS."""
+    irs = {**TABLE_CASES, **OVER_CAP}[case]()
+    for pm, plen, nn in (_all_bytes_pages(), page_edge(list(PAGE_EDGES))):
+        pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
+        pl = torch.from_numpy(plen).to(cuda)
+        nv = torch.from_numpy(nn).to(cuda)
+        chunked = stream_matcher.chunk_stream(pt)
+        for steps in PAGE_EDGE_STEPS:
+            h1, s1 = stream_matcher.match_stream(chunked, pl, nv, irs, steps)
+            h0, s0 = stream_matcher.match_stream_plain(pt, pl, nv, irs, steps)
+            torch.cuda.synchronize()
+            assert torch.equal(h1, h0) and torch.equal(s1, s0), steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["Q13 %special%packages%", "9 Q13 patterns"])
+def test_kernel_counts_table_launches(cuda, case):
+    """`table_launches`, and `k1_table_launches` while a profiler records,
+    count the launches whose byte half came from the table."""
+    irs = {**TABLE_CASES, **OVER_CAP}[case]()
+    pm, plen, nn = _all_bytes_pages()
+    pt = torch.from_numpy(np.ascontiguousarray(pm.T)).to(cuda)
+    args = (stream_matcher.chunk_stream(pt), torch.from_numpy(plen).to(cuda),
+            torch.from_numpy(nn).to(cuda), irs)
+    stream_matcher.match_stream(*args)  # built before the count
+    table = 1 if stream_matcher.table_words(irs) else 0
+    launches, tables = stream_matcher.launches, stream_matcher.table_launches
+    counted = tracing.counters().get("k1_table_launches", 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        stream_matcher.match_stream(*args)
+    stream_matcher.match_stream(*args)  # not counted: no profiler records
+    torch.cuda.synchronize()
+    assert stream_matcher.launches == launches + 2
+    assert stream_matcher.table_launches == tables + 2 * table
+    assert tracing.counters().get("k1_table_launches", 0) == counted + table
 
 
 @pytest.mark.cuda
